@@ -23,8 +23,33 @@ Phases, one JSON line each:
           the CPU (plain versions), on the arc-packed 2000-word TLG and
           the dense-rows 1000-word TLG: words identical, costs within
           1e-4 relative.
-  timing  kernel and plain-version times at the main path's shapes (CUDA
-          events, median) beside each kernel's bound.
+  lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
+          mixed lengths with a length-0 row, state_bf16 on and off): first
+          kernel lstm_fwd with residuals vs its plain version (m and c at
+          the lstm phase's tolerance, the gates at the bf16 one), then
+          kernel lstm_bwd vs its plain version on those residuals: rtol
+          5e-2 / atol 5e-3 on the weight gradients (atol in units of their
+          largest entry, see BWD_W_TOL), rtol 5e-2 / atol 2e-2 on dx, and
+          every gradient within BWD_REL_L2 relative L2.
+  ctc     kernels ctc_alpha and ctc_beta vs their plain versions on the
+          card (B=128, T=768, L=100 so S=201, mixed frame and label
+          lengths, repeated labels, a length-0 row): LOG_ZERO positions
+          identical, elsewhere within rtol CTC_RTOL / atol CTC_ATOL.
+  train   the training path at full width: the same 4 x 320 model trained
+          with SGD (momentum 0.9, max_grad 50, lr 4e-5) through
+          training.trainer.make_train_step.  (i) one step on 8 rows of
+          the batch on the card and on the CPU (plain versions) from the
+          same parameters: loss within TRAIN_LOSS_RTOL, and the clipped
+          gradient (the momentum buffer after one step) within
+          TRAIN_GRAD_RTOL relative L2 per parameter; (ii) TRAIN_STEPS
+          chained steps at B=128, T=768, L=100 with counters zeroed just
+          before and read just after: finite losses, and per step 8
+          lstm_fwd, 8 lstm_bwd, 1 ctc_alpha and 1 ctc_beta launches;
+          seconds per step and audio-s/s = B*T*0.010 / (s per step);
+          (iii) one step under the profiler.
+  timing  kernel and plain-version times at the main paths' shapes (CUDA
+          events, median) beside each kernel's bound, and the library
+          call where one computes the same function (torch's ctc_loss).
   profile the forward (B=8, T=512) and the decode of its posteriors:
           wall ms (host clock to synchronize, profiler off; decode also
           per frame), then under torch.profiler the device-busy ms (sum
@@ -54,6 +79,35 @@ LENGTHS = (512, 497, 463, 430, 388, 341, 290, 256)
 K = 512
 DECODE = dict(beam=16.0, max_active=K, funnel_mult=2, acoustic_scale=0.9)
 LSTM_RTOL, LSTM_ATOL = 2e-2, 2e-3
+# the JAX package's tolerances for its fused gradients
+# (tests/test_lstm_pallas.py:137-144): weights, then dx.  Its gradients
+# are O(1); here the weight gradients are sums over B*T = 98,304 rows with
+# entries up to ~400, and a bf16 recurrence run in another f32 order
+# drifts to the bf16 rounding floor (relative L2 error ~1e-3), so for the
+# weights the absolute part is taken in units of the reference's largest
+# entry where that exceeds 1:
+#   |got - ref| <= atol * max(1, max|ref|) + rtol * |ref|
+# That is looser than the JAX package's atol on the weights, so every
+# gradient is also held to 1e-2 relative L2 (~5x the drift measured).
+BWD_W_TOL, BWD_DX_TOL = (5e-2, 5e-3), (5e-2, 2e-2)
+BWD_REL_L2 = 1e-2
+# the gate residuals are in the compute dtype (bf16): the bf16 tolerance
+GATES_RTOL, GATES_ATOL = 2e-2, 2e-3
+# alpha/beta reach magnitudes of ~4e3 after 768 frames; the kernel and its
+# plain version take the same steps, float32 rounding apart (FMA
+# contraction), so 1e-5 relative, 1e-3 absolute
+CTC_RTOL, CTC_ATOL = 1e-5, 1e-3
+# training shapes (bench.py:50,99-120, the JAX package's headline)
+TRAIN_B, TRAIN_T, TRAIN_L = 128, 768, 100
+TRAIN_HEAD = (768, 731, 640, 512, 397, 256, 128, 0)   # rows 0-7; rest 768
+TRAIN_STEPS = 5
+LEARN_RATE = 4e-5
+# card (kernels, state_bf16) vs CPU (plain versions, f32 state as the JAX
+# package's CPU path), bf16 compute: the loss through four layers as the
+# serving check's log-posteriors; the gradients differ by the bf16
+# rounding of the m cotangent and of the c carry on the card (2^-9
+# relative each), so 5e-2 relative L2 per parameter
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
 # log-posteriors, card vs CPU plain run: sums run in another order, and a
 # last-bit difference can flip the bf16 rounding of a layer's output
 # (2^-9 relative) that the next layer reads; four layers deep
@@ -233,16 +287,22 @@ def _to_cpu(params):
 
 
 def counters():
-    from eesen_tpu_torch.ops import beam_cuda, lstm_cuda
+    from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
 
-    return {"lstm_fwd": lstm_cuda.launches, "dedup_prune": beam_cuda.launches}
+    return {"lstm_fwd": lstm_cuda.launches, "dedup_prune": beam_cuda.launches,
+            "lstm_bwd": lstm_cuda.bwd_launches,
+            "ctc_alpha": ctc_cuda.alpha_launches,
+            "ctc_beta": ctc_cuda.beta_launches}
 
 
 def reset_counters():
-    from eesen_tpu_torch.ops import beam_cuda, lstm_cuda
+    from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
 
     lstm_cuda.launches = 0
+    lstm_cuda.bwd_launches = 0
     beam_cuda.launches = 0
+    ctc_cuda.alpha_launches = 0
+    ctc_cuda.beta_launches = 0
 
 
 def phase_main(dev, graphs, state):
@@ -264,7 +324,8 @@ def phase_main(dev, graphs, state):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counters()
+    launches = {k: v for k, v in counters().items()
+                if k in ("lstm_fwd", "dedup_prune")}
     state["launches"] = launches
     if dev.type == "cuda" and min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
@@ -353,13 +414,288 @@ def phase_search(dev, graphs):
     return out
 
 
-def lstm_bound_ms(inp, state_bf16: bool) -> float:
-    t_max, b, d = inp["x"].shape
+def train_lengths():
+    lens = np.full(TRAIN_B, TRAIN_T, np.int64)
+    lens[:len(TRAIN_HEAD)] = TRAIN_HEAD
+    return lens
+
+
+def train_lstm_inputs(d: int, h: int, dev, seed: int, state_bf16: bool):
+    """One direction-layer at the training shapes: the forward kernel's
+    residuals and a random cotangent of the m carry (bf16 compute)."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dt)
+
+    lens = torch.from_numpy(train_lengths()).to(dev)
+    mask = (torch.arange(TRAIN_T, device=dev)[:, None]
+            < lens[None, :]).float()
+    x = rng.standard_normal((TRAIN_T, TRAIN_B, d)) if d == 120 else \
+        rng.uniform(-1, 1, (TRAIN_T, TRAIN_B, d))
+    u = lambda *s: rng.uniform(-0.1, 0.1, s)
+    fwd = dict(x=t(x, torch.bfloat16), mask=mask,
+               w_x=t(u(d, 4 * h), torch.bfloat16), bias=t(u(4 * h)),
+               w_m=t(u(h, 4 * h), torch.bfloat16), ph=t(u(3, h)))
+    m, c, gates = lstm_cuda.lstm_direction(**fwd, state_bf16=state_bf16,
+                                           with_residuals=True)
+    sdt = m.dtype
+    gm = t(rng.standard_normal((TRAIN_T, TRAIN_B, h)), sdt)
+    bwd = dict(x=fwd["x"], mask=mask, gates=gates, c=c, m=m, gm=gm,
+               w_x=fwd["w_x"], w_m=fwd["w_m"], ph=fwd["ph"])
+    return fwd, bwd
+
+
+def phase_lstm_bwd(dev):
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    errs, rel_l2, worst, fwd_errs = {}, {}, {}, {}
+    names = ("dx", "dw_x", "dw_m", "db", "dph")
+    for d in (120, 640):
+        for sb in (False, True):
+            fwd, inp = train_lstm_inputs(d, 320, dev, SEED + d + 1, sb)
+            # kernel 1 as the training path runs it, before its residuals
+            # feed both sides of the backward check
+            fwd_ref = lstm_cuda.lstm_direction_ref(
+                **fwd, state_bf16=sb, with_residuals=True)
+            for name, r, (rtol, atol) in zip(
+                    ("m", "c", "gates"), fwd_ref,
+                    ((LSTM_RTOL, LSTM_ATOL), (LSTM_RTOL, LSTM_ATOL),
+                     (GATES_RTOL, GATES_ATOL))):
+                g = inp[name]
+                key = f"D{d}_state_bf16_{int(sb)}_{name}"
+                if g.dtype != r.dtype or g.shape != r.shape:
+                    raise AssertionError(f"lstm_fwd {key}: {g.dtype} "
+                                         f"{tuple(g.shape)} vs {r.dtype}")
+                g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+                fwd_errs[key] = float(np.abs(g - r).max())
+                if not np.allclose(g, r, rtol=rtol, atol=atol):
+                    raise AssertionError(f"lstm_fwd {key}: max abs err "
+                                         f"{fwd_errs[key]}")
+            del fwd_ref
+            got = lstm_cuda.lstm_direction_bwd(**inp)
+            ref = lstm_cuda.lstm_direction_bwd_ref(**inp)
+            for name, g, r in zip(names, got, ref):
+                if g.dtype != r.dtype or g.shape != r.shape:
+                    raise AssertionError(f"lstm_bwd {name}: {g.dtype} "
+                                         f"{tuple(g.shape)} vs {r.dtype}")
+                rtol, atol = BWD_DX_TOL if name == "dx" else BWD_W_TOL
+                g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+                key = f"D{d}_state_bf16_{int(sb)}_{name}"
+                err = np.abs(g - r)
+                scale = 1.0 if name == "dx" else max(1.0, float(np.abs(r).max()))
+                errs[key] = float(err.max())
+                rel_l2[key] = float(np.linalg.norm(g - r)
+                                    / max(np.linalg.norm(r), 1e-30))
+                worst[key] = float(np.max(err / (atol * scale
+                                                  + rtol * np.abs(r))))
+                if (not np.all(np.isfinite(g)) or worst[key] > 1.0
+                        or rel_l2[key] > BWD_REL_L2):
+                    raise AssertionError(f"lstm_bwd {key}: max abs err "
+                                         f"{errs[key]}, {worst[key]} of "
+                                         f"the tolerance, relative L2 "
+                                         f"{rel_l2[key]}")
+    return {"max_abs_err": errs, "rel_l2_err": rel_l2,
+            "worst_share_of_tol": worst, "weights_tol": BWD_W_TOL,
+            "dx_tol": BWD_DX_TOL, "rel_l2_tol": BWD_REL_L2,
+            "fwd_max_abs_err": fwd_errs,
+            "fwd_tol": {"m_c": (LSTM_RTOL, LSTM_ATOL),
+                        "gates": (GATES_RTOL, GATES_ATOL)}}
+
+
+def ctc_train_inputs(dev, seed: int):
+    """The kernels' inputs at the training shapes: random logits through
+    the port's CTC prep, labels with repeats, mixed lengths, a length-0
+    row (frames and labels)."""
+    import torch
+    from eesen_tpu_torch.ops.ctc import _ctc_prep, _final_states
+    from eesen_tpu_torch.utils.math import LOG_ZERO
+
+    rng = np.random.default_rng(seed)
+    lens = train_lengths()
+    lab_l = np.minimum(TRAIN_L, lens // 3)
+    labels = rng.integers(1, 72, (TRAIN_B, TRAIN_L))
+    labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]
+    for i, n in enumerate(lab_l):
+        labels[i, n:] = 0
+    logits = torch.from_numpy(rng.standard_normal(
+        (TRAIN_B, TRAIN_T, 72)).astype(np.float32)).to(dev)
+    lab_l_t = torch.from_numpy(lab_l).to(dev)
+    _, _, can_skip, _, lp_e = _ctc_prep(
+        logits, torch.from_numpy(labels).to(dev), lab_l_t, 0)
+    _, _, init = _final_states(lab_l_t, lp_e.shape[2])
+    return dict(lp_e=lp_e.contiguous(),
+                can_skip_f=torch.where(can_skip, 0.0, LOG_ZERO).contiguous(),
+                beta_init_row=init.contiguous(),
+                logit_lengths=torch.from_numpy(lens).to(dev))
+
+
+def phase_ctc(dev):
+    from eesen_tpu_torch.ops import ctc_cuda
+    from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
+
+    inp = ctc_train_inputs(dev, SEED + 3)
+    got = ctc_cuda.ctc_alpha_beta(**inp)
+    ref = ctc_cuda.ctc_alpha_beta_ref(**inp)
+    errs = {}
+    for name, g, r in zip(("alpha", "beta"), got, ref):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        fin = r > LOG_ZERO_THRESHOLD
+        if not np.array_equal(g > LOG_ZERO_THRESHOLD, fin):
+            raise AssertionError(f"ctc {name}: LOG_ZERO positions differ")
+        errs[name] = float(np.abs(g[fin] - r[fin]).max())
+        if not np.all(np.isfinite(g)) or not np.allclose(
+                g[fin], r[fin], rtol=CTC_RTOL, atol=CTC_ATOL):
+            raise AssertionError(f"ctc {name}: max abs err {errs[name]}")
+    pad = int(np.flatnonzero(train_lengths() == 0)[0])
+    a, b = got[0][pad], got[1][pad]
+    if not (bool((a == a[:1]).all()) and bool((b == LOG_ZERO).all())):
+        raise AssertionError("ctc: the length-0 row is not init / LOG_ZERO")
+    return {"max_abs_err": errs, "rtol": CTC_RTOL, "atol": CTC_ATOL,
+            "states": int(inp["lp_e"].shape[2])}
+
+
+def train_setup(dev):
+    """The flagship model, its SGD state and one fixed batch (bench.py's:
+    normal features, random labels; rows 0-7 of mixed length, row 7 a
+    padded row of 0 frames and 0 labels)."""
+    import torch
+    from eesen_tpu_torch.models.model import AcousticModelConfig
+    from eesen_tpu_torch.training.optim import OptimizerConfig
+    from eesen_tpu_torch.training.trainer import create_train_state
+
+    cfg = AcousticModelConfig(input_dim=120, cell_dim=320, num_layers=4,
+                              num_targets=72)
+    opt = OptimizerConfig(algorithm="sgd", momentum=0.9, max_grad=50.0)
+    st, tx = create_train_state(torch.Generator().manual_seed(SEED), cfg,
+                                opt, device=dev)
+    rng = np.random.default_rng(SEED + 7)
+    lens = train_lengths()
+    lab_l = np.minimum(TRAIN_L, lens // 3)
+    feats = rng.standard_normal((TRAIN_B, TRAIN_T, 120)).astype(np.float32)
+    labels = rng.integers(1, 72, (TRAIN_B, TRAIN_L))
+    for i in range(TRAIN_B):
+        feats[i, lens[i]:] = 0.0
+        labels[i, lab_l[i]:] = 0
+    batch = {"feats": feats, "feat_lengths": lens, "labels": labels,
+             "label_lengths": lab_l}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in batch.items()}
+    return cfg, st, tx, batch
+
+
+def phase_train(dev, state):
+    import torch
+    from eesen_tpu_torch.training.optim import OptState, unravel
+    from eesen_tpu_torch.training.trainer import TrainState, make_train_step
+
+    cfg, st, tx, batch = train_setup(dev)
+    step = make_train_step(cfg, tx)
+    # (i) 8 rows, card vs CPU, from the same parameters and a zero state
+    b8 = {k: v[:8] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    st_card, m_card = step(st, b8, None, LEARN_RATE)
+    cpu_st = TrainState(_to_cpu(st.params), OptState(
+        dict(st.opt_state.hyperparams),
+        {k: v.cpu() for k, v in st.opt_state.inner.items()}), st.step)
+    st_cpu, m_cpu = step(cpu_st, {k: v.cpu() for k, v in b8.items()}, None,
+                         LEARN_RATE)
+    cpu_s = time.perf_counter() - t0
+    loss_c, loss_h = float(m_card["loss"]), float(m_cpu["loss"])
+    loss_err = abs(loss_c - loss_h) / abs(loss_h)
+    # one step from a zero momentum buffer leaves the clipped gradient in it
+    g_card = unravel(_to_cpu(st.params),
+                     st_card.opt_state.inner["trace"].cpu())
+    g_cpu = unravel(cpu_st.params, st_cpu.opt_state.inner["trace"])
+    grad_err = {}
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}.{k}" if path else k)
+        elif isinstance(a, list):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}{i}")
+        else:
+            grad_err[path] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    walk(g_card, g_cpu, "")
+    worst = max(grad_err, key=grad_err.get)
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err[worst] <= TRAIN_GRAD_RTOL
+            and np.isfinite(loss_c)):
+        raise AssertionError(f"8-row step: loss {loss_c} vs {loss_h}, "
+                             f"grad {worst} rel err {grad_err[worst]}")
+    # (ii) chained full-width steps, counters zeroed just before
+    st, m = step(st, batch, None, LEARN_RATE)          # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        st, m = step(st, batch, None, LEARN_RATE)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items() if k != "dedup_prune"}
+    state["train_launches"] = launches
+    losses = [float(x) for x in losses]
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want = {"lstm_fwd": 8, "lstm_bwd": 8, "ctc_alpha": 1, "ctc_beta": 1}
+    if per_step != want or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"launches per step {per_step}, losses {losses}")
+    s_step = wall / TRAIN_STEPS
+    # (iii) one step under the profiler
+    holder = {"st": st}
+
+    def one_step():
+        holder["st"], _ = step(holder["st"], batch, None, LEARN_RATE)
+
+    return {"cpu_check": {"rows": 8, "loss_card": loss_c, "loss_cpu": loss_h,
+                          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+                          "grad_rel_err_max": grad_err[worst],
+                          "grad_rel_err_worst": worst,
+                          "grad_rtol": TRAIN_GRAD_RTOL, "seconds": cpu_s},
+            "batch": TRAIN_B, "frames": TRAIN_T, "labels": TRAIN_L,
+            "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+            "launches_per_step": per_step, "s_per_step": s_step,
+            "audio_s_per_s": TRAIN_B * TRAIN_T * 0.010 / s_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": _profile(one_step)}
+
+
+def _nbytes(tensors) -> int:
+    return sum(v.numel() * v.element_size() for v in tensors)
+
+
+def lstm_bound(inp, outs, valid_steps: int, passes: int = 1):
+    """Kernel 1 (passes=1: 2*sum(len)*(D+H)*4H FLOP) or kernel 3 (passes=2:
+    dx, dW_x, dW_m and dm's product, 4*sum(len)*(D+H)*4H FLOP) over the
+    valid steps at the bf16 rate, or its inputs and outputs moved once at
+    the memory rate, whichever is longer.  Returns (ms, "operations" or
+    "bytes")."""
+    d = inp["x"].shape[2]
     h = inp["w_m"].shape[0]
-    nbytes = sum(v.numel() * v.element_size() for v in inp.values())
-    nbytes += t_max * b * h * (2 if state_bf16 else 4)
-    flops = 2.0 * sum(LENGTHS) * (d + h) * 4 * h
-    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    flops = 2.0 * passes * valid_steps * (d + h) * 4 * h
+    t_ops = flops / BF16_FLOPS
+    t_bytes = (_nbytes(inp.values()) + _nbytes(outs)) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ctc_bound_ms(inp, which: str) -> float:
+    """Kernel 6 or 7: reads lp_e (and the masks and lengths) once, writes
+    its [B,T,S] float32 output once; the log-space arithmetic, ~10
+    float32 operations a state and frame, is far below the bytes."""
+    ins = [inp["lp_e"], inp["can_skip_f"], inp["logit_lengths"]]
+    if which == "beta":
+        ins.append(inp["beta_init_row"])
+    nbytes = _nbytes(ins) + inp["lp_e"].numel() * 4
+    ops = 10.0 * inp["lp_e"].numel()
+    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS) * 1e3
 
 
 def dedup_bound_ms(m: int) -> float:
@@ -374,12 +710,14 @@ def phase_timing(dev):
     out = {"lstm_fwd": {}, "dedup_prune": {}}
     for d in (120, 640):
         inp = lstm_inputs(d, 320, dev, SEED + d)
+        bound, by = lstm_bound(inp, [lstm_cuda.lstm_direction(
+            **inp, state_bf16=True)], sum(LENGTHS))
         out["lstm_fwd"][f"D{d}"] = dict(
             ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
                 **inp, state_bf16=True), 5),
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **inp, state_bf16=True), 2),
-            bound_ms=lstm_bound_ms(inp, True),
+            bound_ms=bound, bound_by=by,
         )
     for m in (4096, 14336):
         dst, score = dedup_inputs(m, dev, SEED + m)
@@ -390,6 +728,98 @@ def phase_timing(dev):
             plain_ms=_cuda_ms(lambda: beam_cuda.dedup_prune_ref(
                 dst, score, K, beam), 20),
             bound_ms=dedup_bound_ms(m),
+        )
+    out.update(timing_train_shapes(dev))
+    return out
+
+
+def _ctc_kernel(which: str, inp, out):
+    """One CTC kernel through the library entry itself, so that timing
+    it does not move the wrapper's launch counters."""
+    import torch
+    from eesen_tpu_torch.ops import build
+
+    lib = build.load()
+    b, t, s = inp["lp_e"].shape
+    lens = inp["logit_lengths"].to(torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    if which == "alpha":
+        err = lib.ctc_alpha(inp["lp_e"].data_ptr(),
+                            inp["can_skip_f"].data_ptr(), lens.data_ptr(),
+                            out.data_ptr(), b, t, s, stream)
+    else:
+        err = lib.ctc_beta(inp["lp_e"].data_ptr(),
+                           inp["can_skip_f"].data_ptr(),
+                           inp["beta_init_row"].data_ptr(), lens.data_ptr(),
+                           out.data_ptr(), b, t, s, stream)
+    build.check(err, f"ctc_{which}")
+
+
+def timing_train_shapes(dev):
+    """Kernels 1 and 3 per direction-layer and kernels 6 and 7 at the
+    training shapes (B=128, T=768), and torch's ctc_loss (forward; forward
+    + backward) on the same log-probabilities as the CTC yardstick."""
+    import torch
+    from eesen_tpu_torch.ops import ctc_cuda, lstm_cuda
+
+    out = {"lstm_fwd_train": {}, "lstm_bwd": {}, "ctc_alpha": {},
+           "ctc_beta": {}}
+    for d in (120, 640):
+        fwd, bwd = train_lstm_inputs(d, 320, dev, SEED + d + 1, True)
+        res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
+                                       with_residuals=True)
+        bound, by = lstm_bound(fwd, res, int(train_lengths().sum()))
+        out["lstm_fwd_train"][f"D{d}"] = dict(
+            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
+                **fwd, state_bf16=True, with_residuals=True), 3),
+            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
+                **fwd, state_bf16=True, with_residuals=True), 1),
+            bound_ms=bound, bound_by=by,
+        )
+        grads = lstm_cuda.lstm_direction_bwd(**bwd)
+        bound, by = lstm_bound(bwd, grads, int(train_lengths().sum()),
+                               passes=2)
+        out["lstm_bwd"][f"D{d}"] = dict(
+            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), 3),
+            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd_ref(
+                **bwd), 1),
+            bound_ms=bound, bound_by=by,
+        )
+        del fwd, bwd, res, grads
+    inp = ctc_train_inputs(dev, SEED + 3)
+    buf = torch.empty_like(inp["lp_e"])
+    refs = {
+        "alpha": lambda: ctc_cuda.ctc_alpha_ref(
+            inp["lp_e"], inp["can_skip_f"], inp["logit_lengths"]),
+        "beta": lambda: ctc_cuda.ctc_beta_ref(**inp),
+    }
+    # the library yardstick: torch's CTC loss on log-probabilities with
+    # the same lengths (forward computes alpha, backward beta)
+    rng = np.random.default_rng(SEED + 3)
+    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal(
+        (TRAIN_T, TRAIN_B, 72)).astype(np.float32)).to(dev), -1)
+    lens = inp["logit_lengths"]
+    lab_l = torch.minimum(torch.full_like(lens, TRAIN_L), lens // 3)
+    targets = torch.from_numpy(rng.integers(1, 72, (TRAIN_B, TRAIN_L))).to(dev)
+    lp_g = lp.clone().requires_grad_()
+
+    def lib_fwd():
+        return torch.nn.functional.ctc_loss(lp, targets, lens, lab_l,
+                                            reduction="sum")
+
+    def lib_fwd_bwd():
+        torch.nn.functional.ctc_loss(lp_g, targets, lens, lab_l,
+                                     reduction="sum").backward()
+
+    library = {"alpha": (_cuda_ms(lib_fwd, 10), "F.ctc_loss forward"),
+               "beta": (_cuda_ms(lib_fwd_bwd, 10),
+                        "F.ctc_loss forward + backward")}
+    for which in ("alpha", "beta"):
+        out[f"ctc_{which}"]["S201"] = dict(
+            ms=_cuda_ms(lambda: _ctc_kernel(which, inp, buf), 20),
+            plain_ms=_cuda_ms(refs[which], 2),
+            bound_ms=ctc_bound_ms(inp, which),
+            library_ms=library[which][0], library_call=library[which][1],
         )
     return out
 
@@ -451,17 +881,51 @@ def phase_profile(dev, graphs, state):
 
 def kernels_report(state, timing):
     lt = timing["lstm_fwd"]["D640"]
+    ltt = timing["lstm_fwd_train"]["D640"]
     dt = timing["dedup_prune"]["m14336"]
+    bt = timing["lstm_bwd"]["D640"]
+    tl = state["train_launches"]
+    train_path = f"train ({TRAIN_STEPS} steps)"
+    ctc = [
+        {"name": f"ctc_{w}", "route": "cuda",
+         "source": "eesen_tpu_torch/csrc/ctc_alpha_beta.cu",
+         "replaces": f"eesen_tpu/ops/ctc_pallas.py:{line}",
+         "launches": tl[f"ctc_{w}"], "path": train_path,
+         "max_abs_err": state["ctc"]["max_abs_err"][w],
+         "ms": timing[f"ctc_{w}"]["S201"]["ms"],
+         "plain_ms": timing[f"ctc_{w}"]["S201"]["plain_ms"],
+         "bound_ms": timing[f"ctc_{w}"]["S201"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": timing[f"ctc_{w}"]["S201"]["library_ms"],
+         "library_call": timing[f"ctc_{w}"]["S201"]["library_call"],
+         "shape": "B=128 T=768 S=201"}
+        for w, line in (("alpha", 62), ("beta", 88))
+    ]
     return {"kernels": [
         {"name": "lstm_fwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "eesen_tpu/ops/lstm_pallas.py:323",
-         "launches": state["launches"]["lstm_fwd"],
+         "launches": state["launches"]["lstm_fwd"], "path": "serve",
+         "train_launches": tl["lstm_fwd"],
          "max_abs_err": max(state["lstm"]["max_abs_err"].values()),
          "ms": lt["ms"], "plain_ms": lt["plain_ms"],
-         "bound_ms": lt["bound_ms"], "bound_by": "operations",
+         "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
          "library_ms": None,
-         "shape": "B=8 T=512 D=640 H=320 bf16, state_bf16"},
+         "shape": "B=8 T=512 D=640 H=320 bf16, state_bf16",
+         "train_shape_max_abs_err": max(
+             state["lstm_bwd"]["fwd_max_abs_err"].values()),
+         "train_shape_ms": ltt["ms"], "train_shape_plain_ms": ltt["plain_ms"],
+         "train_shape_bound_ms": ltt["bound_ms"]},
+        {"name": "lstm_bwd", "route": "cuda",
+         "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
+         "replaces": "eesen_tpu/ops/lstm_pallas.py:379",
+         "launches": tl["lstm_bwd"], "path": train_path,
+         "max_abs_err": max(state["lstm_bwd"]["max_abs_err"].values()),
+         "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+         "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+         "library_ms": None,
+         "shape": "B=128 T=768 D=640 H=320 bf16, state_bf16"},
+        *ctc,
         {"name": "dedup_prune", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/dedup_prune.cu",
          "replaces": "eesen_tpu/ops/beam_pallas.py:110",
@@ -517,6 +981,9 @@ def run(dev) -> bool:
         return False
     phase("search", phase_search, dev, graphs)
     if dev.type == "cuda":
+        state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
+        state["ctc"] = phase("ctc", phase_ctc, dev)
+        phase("train", phase_train, dev, state)
         timing = phase("timing", phase_timing, dev)
         phase("profile", phase_profile, dev, graphs, state)
         if ok and timing is not None:

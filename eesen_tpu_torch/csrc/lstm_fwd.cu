@@ -10,7 +10,9 @@
 // in the type of x, bias [4H] f32, peepholes [3,H] f32 (i, f, o).  Outputs:
 // m carry [T,B,H] (bf16 when state_bf16, else f32) and, when the pointers are
 // not null, the c carry [T,B,H] (same type) and the post-activation gates
-// [T,B,4H] bf16 (g, i, f, o) that the backward pass reads.
+// [T,B,4H] in the type of x (g, i, f, o) that the backward pass reads: bf16
+// on the bf16 path, as on the TPU; float32 on the f32 path, so that f32
+// training keeps f32 residuals.
 //
 // Design.  One thread block per group of RB batch rows; a loop over t inside
 // the block replaces the TPU's sequential grid.  Thread (s, h) owns hidden
@@ -58,7 +60,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(const TIn* __restrict__ 
                                 const TIn* __restrict__ wx, const float* __restrict__ bias,
                                 const TIn* __restrict__ wm, const float* __restrict__ ph,
                                 TState* __restrict__ m_out, TState* __restrict__ c_out,
-                                __nv_bfloat16* __restrict__ gates_out, int T, int B, int D,
+                                TIn* __restrict__ gates_out, int T, int B, int D,
                                 int H, int S) {
   extern __shared__ float smem[];
   const int K = D + H;            // rows of [W_x; W_m]
@@ -156,11 +158,11 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(const TIn* __restrict__ 
       m_out[row * H + u] = from_f<TState>(m_new);
       if (c_out != nullptr) c_out[row * H + u] = from_f<TState>(c_new);
       if (gates_out != nullptr) {
-        __nv_bfloat16* gp = gates_out + row * G;
-        gp[u] = __float2bfloat16(gg);
-        gp[H + u] = __float2bfloat16(ig);
-        gp[2 * H + u] = __float2bfloat16(fg);
-        gp[3 * H + u] = __float2bfloat16(og);
+        TIn* gp = gates_out + row * G;
+        gp[u] = from_f<TIn>(gg);
+        gp[H + u] = from_f<TIn>(ig);
+        gp[2 * H + u] = from_f<TIn>(fg);
+        gp[3 * H + u] = from_f<TIn>(og);
       }
     }
     // the next step's inputs: the x part of the operand is not read above
@@ -187,7 +189,7 @@ cudaError_t launch(const void* x, const void* mask, const void* wx, const void* 
       static_cast<const TIn*>(x), static_cast<const float*>(mask), static_cast<const TIn*>(wx),
       static_cast<const float*>(bias), static_cast<const TIn*>(wm),
       static_cast<const float*>(ph), static_cast<TState*>(m_out), static_cast<TState*>(c_out),
-      static_cast<__nv_bfloat16*>(gates_out), T, B, D, H, S);
+      static_cast<TIn*>(gates_out), T, B, D, H, S);
   return cudaGetLastError();
 }
 

@@ -20,10 +20,14 @@ On a CUDA tensor `_direction_scan` runs the fused kernel (ops/lstm_cuda.py,
 csrc/lstm_fwd.cu): input projection and recurrence in one launch, m
 streamed in bf16 when `state_bf16`.  On a CPU tensor it runs the plain
 recurrence, which follows the JAX package's XLA scan branch: products in
-`compute_dtype`, f32 state, `state_bf16` ignored.
+`compute_dtype`, f32 state, `state_bf16` ignored.  Gradients come from
+`lstm_cuda.LstmDirection`: the backward kernel csrc/lstm_bwd.cu on the
+card, its plain version on the CPU.
 
-Inference only in this package so far: `train=True` (forward and
-recurrent dropout, twiddle) raises NotImplementedError.
+`train=True` runs the layer as the JAX package trains it without dropout
+(the WSJ recipe uses none).  Forward dropout, recurrent dropout and
+twiddle raise NotImplementedError: the JAX package runs recurrent dropout
+through its XLA scan, with no kernel, and the port has not taken it yet.
 """
 
 from __future__ import annotations
@@ -104,16 +108,18 @@ def _direction_scan(
 ) -> torch.Tensor:
     """One direction's recurrence, time-major: x [T, B, D] (already
     time-flipped for the backward direction), mask [T, B] float 0/1;
-    returns m [T, B, H] f32, zero at padded steps."""
+    returns m [T, B, H] (f32, or bf16 from the card under state_bf16),
+    zero at padded steps.  The weights go in as float32: the wrapper casts
+    them to the compute dtype, and their gradients stay float32."""
     d, h = cfg.input_dim, cfg.cell_dim
     cdt = cfg.compute_dtype
     ph = torch.stack([p["phole_i_c"], p["phole_f_c"], p["phole_o_c"]])
     m = lstm_cuda.lstm_direction(
         x.to(cdt).contiguous(),
         mask.contiguous(),
-        p["w_gifo_x"].reshape(d, 4 * h).to(cdt).contiguous(),
+        p["w_gifo_x"].reshape(d, 4 * h).contiguous(),
         p["bias"].reshape(4 * h).contiguous(),
-        p["w_gifo_m"].reshape(h, 4 * h).to(cdt).contiguous(),
+        p["w_gifo_m"].reshape(h, 4 * h).contiguous(),
         ph.contiguous(),
         # the CPU path keeps f32 state, as the JAX package's XLA scan does
         state_bf16=cfg.state_bf16 and x.is_cuda,
@@ -130,10 +136,12 @@ def bilstm_layer_tm(
     train: bool = False,
 ) -> torch.Tensor:
     """Apply one BiLSTM layer, time-major: x [T, B, D] -> [T, B, 2H]
-    ([T, B, H] when unidirectional), zero at padded steps."""
-    if train:
+    ([T, B, H] when unidirectional), zero at padded steps.  `train` only
+    matters for dropout and twiddle, which are not ported yet."""
+    if train and (cfg.forward_dropout > 0.0 or cfg.recurrent_dropout > 0.0
+                  or cfg.twiddle):
         raise NotImplementedError(
-            "training (dropout, twiddle) is not ported yet"
+            "training with dropout or twiddle is not ported yet"
         )
     t_max = x.shape[0]
     t_iota = torch.arange(t_max, device=x.device)[:, None]

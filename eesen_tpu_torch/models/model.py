@@ -13,7 +13,7 @@ so `params_from_jax` converts name for name.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -134,12 +134,17 @@ def apply_model(
     cfg: AcousticModelConfig,
     *,
     train: bool = False,
+    rng: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """feats [B, T, input_dim] -> logits [B, T, num_targets] (f32).
 
     The stack runs time-major (one transpose in, one out), as the JAX
     package does.  The output affine is a float32 torch.matmul of the
-    compute-dtype operands (TF32 is off)."""
+    compute-dtype operands (TF32 is off).  Gradients flow to `params`
+    when they require grad (the LSTM through its backward kernel).
+    `rng` would seed dropout; it is unused while dropout raises
+    NotImplementedError (models/bilstm.py)."""
+    del rng
     x = feats.transpose(0, 1)                             # [T, B, D]
     for i in range(cfg.num_layers):
         x = bilstm_layer_tm(

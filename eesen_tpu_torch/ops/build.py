@@ -25,7 +25,10 @@ from typing import List, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lstm_fwd.cu", "dedup_prune.cu", "cuda_errors.cu")
+SOURCES = (
+    "lstm_fwd.cu", "lstm_bwd.cu", "ctc_alpha_beta.cu", "dedup_prune.cu",
+    "cuda_errors.cu",
+)
 LIB_PATH = os.path.join(BUILD_DIR, "libeesen_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,6 +125,14 @@ def load() -> ctypes.CDLL:
         lib.lstm_fwd.restype = _I
         lib.lstm_fwd_smem_bytes.argtypes = [_I] * 4
         lib.lstm_fwd_smem_bytes.restype = ctypes.c_longlong
+        lib.lstm_bwd.argtypes = [_P] * 17 + [_I] * 10 + [_P]
+        lib.lstm_bwd.restype = _I
+        lib.lstm_bwd_smem_bytes.argtypes = [_I] * 3
+        lib.lstm_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.ctc_alpha.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.ctc_alpha.restype = _I
+        lib.ctc_beta.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.ctc_beta.restype = _I
         lib.dedup_prune.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
         lib.dedup_prune.restype = _I
         lib.cuda_error_string.argtypes = [_I]

@@ -1,0 +1,138 @@
+"""CTC alpha/beta recursions: the CUDA kernels `csrc/ctc_alpha_beta.cu` and
+their plain PyTorch version.
+
+Replaces the TPU kernels `_alpha_kernel` and `_beta_kernel` (eesen_tpu/ops/
+ctc_pallas.py:62 and :88) behind the contract of their wrapper
+`ctc_alpha_beta_pallas`: expanded-label log-probabilities lp_e [B, T, S],
+the additive skip mask [B, S] (0 where the s-2 -> s transition is allowed,
+LOG_ZERO elsewhere), the beta init row [B, S] and the frame counts [B] give
+alpha and beta [B, T, S] float32.  Alpha is frozen past a row's length;
+beta is the init row at t = len-1 and LOG_ZERO after it.
+
+`ctc_alpha_beta` is the wrapper: on a CUDA tensor it launches the two
+kernels (or raises), on a CPU tensor it runs `ctc_alpha_beta_ref`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from eesen_tpu_torch.ops import build
+from eesen_tpu_torch.utils.math import (
+    LOG_ZERO, LOG_ZERO_THRESHOLD, log_add, shift_left, shift_right,
+)
+
+# kernel launches since the last reset (chip_smoke.py reads and resets them)
+alpha_launches = 0
+beta_launches = 0
+
+# one thread per CTC state, so S = 2L+1 is capped by the block size
+MAX_STATES = 1024
+
+
+def ctc_alpha_ref(
+    lp_e: torch.Tensor, can_skip_f: torch.Tensor,
+    logit_lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the alpha kernel, step for step (ctc_pallas.py:
+    62-85): alpha [B, T, S] float32, frozen past each row's length."""
+    _, t_max, _ = lp_e.shape
+    lens = logit_lengths.to(lp_e.device)[:, None]
+    lane = torch.arange(lp_e.shape[2], device=lp_e.device)[None, :]
+    alpha = torch.empty_like(lp_e)
+    a = torch.where(lane <= 1, lp_e[:, 0], LOG_ZERO)
+    alpha[:, 0] = a
+    for t in range(1, t_max):
+        prev2 = shift_right(a, 2) + can_skip_f
+        new = lp_e[:, t] + log_add(log_add(a, shift_right(a, 1)), prev2)
+        a = torch.where(t < lens, new, a)
+        alpha[:, t] = a
+    return alpha
+
+
+def ctc_beta_ref(
+    lp_e: torch.Tensor, can_skip_f: torch.Tensor,
+    beta_init_row: torch.Tensor, logit_lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the beta kernel, step for step (ctc_pallas.py:
+    88-117): beta [B, T, S] float32, the init row at t = len-1 and
+    LOG_ZERO after it."""
+    _, t_max, _ = lp_e.shape
+    lens = logit_lengths.to(lp_e.device)[:, None]
+    beta = torch.empty_like(lp_e)
+    # the skip into s+2, seen from the source state s
+    skip_src = torch.where(
+        shift_left(can_skip_f, 2) > LOG_ZERO_THRESHOLD, 0.0, LOG_ZERO
+    )
+    b = torch.full_like(beta_init_row, LOG_ZERO)
+    for t in range(t_max - 1, -1, -1):
+        nxt = b + lp_e[:, min(t + 1, t_max - 1)]
+        rec = log_add(log_add(nxt, shift_left(nxt, 1)),
+                      shift_left(nxt, 2) + skip_src)
+        b = torch.where(t == lens - 1, beta_init_row,
+                        torch.where(t < lens - 1, rec, LOG_ZERO))
+        beta[:, t] = b
+    return beta
+
+
+def ctc_alpha_beta_ref(
+    lp_e: torch.Tensor, can_skip_f: torch.Tensor,
+    beta_init_row: torch.Tensor, logit_lengths: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the two kernels: (alpha, beta) [B, T, S]."""
+    return (ctc_alpha_ref(lp_e, can_skip_f, logit_lengths),
+            ctc_beta_ref(lp_e, can_skip_f, beta_init_row, logit_lengths))
+
+
+def ctc_alpha_beta(
+    lp_e: torch.Tensor, can_skip_f: torch.Tensor,
+    beta_init_row: torch.Tensor, logit_lengths: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both recursions: lp_e [B, T, S] f32, can_skip_f [B, S] f32,
+    beta_init_row [B, S] f32, logit_lengths [B] (any integer type) ->
+    (alpha [B, T, S], beta [B, T, S]) float32."""
+    global alpha_launches, beta_launches
+    if lp_e.device.type == "cpu":
+        return ctc_alpha_beta_ref(lp_e, can_skip_f, beta_init_row,
+                                  logit_lengths)
+    if lp_e.device.type != "cuda":
+        raise ValueError(f"ctc_alpha_beta: unsupported device {lp_e.device}")
+    bsz, t_max, s = lp_e.shape
+    if s > MAX_STATES:
+        raise ValueError(
+            f"ctc_alpha_beta: {s} states exceed the kernel's {MAX_STATES}"
+        )
+    for name, ten, shape in (("lp_e", lp_e, (bsz, t_max, s)),
+                             ("can_skip_f", can_skip_f, (bsz, s)),
+                             ("beta_init_row", beta_init_row, (bsz, s))):
+        if tuple(ten.shape) != shape or ten.dtype != torch.float32:
+            raise ValueError(
+                f"ctc_alpha_beta: {name} must be float32 {shape}, got "
+                f"{ten.dtype} {tuple(ten.shape)}"
+            )
+        if ten.device != lp_e.device or not ten.is_contiguous():
+            raise ValueError(
+                f"ctc_alpha_beta: {name} must be contiguous on {lp_e.device}"
+            )
+    if tuple(logit_lengths.shape) != (bsz,):
+        raise ValueError(f"ctc_alpha_beta: logit_lengths must be [{bsz}]")
+    lens = logit_lengths.to(lp_e.device, torch.int32).contiguous()
+    alpha = torch.empty_like(lp_e)
+    beta = torch.empty_like(lp_e)
+    if bsz == 0 or t_max == 0:
+        return alpha, beta
+    lib = build.load()
+    stream = torch.cuda.current_stream(lp_e.device).cuda_stream
+    err = lib.ctc_alpha(lp_e.data_ptr(), can_skip_f.data_ptr(),
+                        lens.data_ptr(), alpha.data_ptr(), bsz, t_max, s,
+                        stream)
+    build.check(err, "ctc_alpha")
+    alpha_launches += 1
+    err = lib.ctc_beta(lp_e.data_ptr(), can_skip_f.data_ptr(),
+                       beta_init_row.data_ptr(), lens.data_ptr(),
+                       beta.data_ptr(), bsz, t_max, s, stream)
+    build.check(err, "ctc_beta")
+    beta_launches += 1
+    return alpha, beta

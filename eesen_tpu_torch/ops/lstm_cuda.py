@@ -1,16 +1,22 @@
 """One LSTM direction, input projection and recurrence fused: the CUDA
-kernel `csrc/lstm_fwd.cu` and its plain PyTorch version.
+kernels `csrc/lstm_fwd.cu` (forward) and `csrc/lstm_bwd.cu` (backward),
+their plain PyTorch versions, and the autograd Function over the pair.
 
-Replaces the TPU kernel `_fused_fwd_kernel` (eesen_tpu/ops/lstm_pallas.py:
-323, entry `lstm_direction_fused_tm`).  GIFO gate order with i/f/o
-peepholes (src/net/lstm-layer.h:70-73 of the reference toolkit); padded
-steps (mask 0) freeze the c and m carries.
+Replaces the TPU kernels `_fused_fwd_kernel` and `_fused_bwd_kernel`
+(eesen_tpu/ops/lstm_pallas.py:323 and :379, entry
+`lstm_direction_fused_tm`, whose custom VJP `LstmDirection` mirrors).  GIFO
+gate order with i/f/o peepholes (src/net/lstm-layer.h:70-73 of the
+reference toolkit); padded steps (mask 0) freeze the c and m carries.
 
-`lstm_direction` is the wrapper: on a CUDA tensor it launches the kernel
-(or raises), on a CPU tensor it runs `lstm_direction_ref`.  Both take the
-weights gate-packed as [D, 4H] / [H, 4H] (the [D, 4, H] parameters
-reshaped) and return the m CARRY [T, B, H]: at a padded step it repeats
-the previous m, so callers multiply by the mask to get the layer output.
+`lstm_direction` is the forward wrapper and `lstm_direction_bwd` the
+backward one: on a CUDA tensor each launches its kernel (or raises), on a
+CPU tensor each runs its plain version (`lstm_direction_ref`,
+`lstm_direction_bwd_ref`).  Weights are gate-packed as [D, 4H] / [H, 4H]
+(the [D, 4, H] parameters reshaped).  `lstm_direction` returns the m
+CARRY [T, B, H]: at a padded step it repeats the previous m, so callers
+multiply by the mask to get the layer output.  When autograd needs a
+gradient it returns through `LstmDirection`, whose forward keeps the
+residuals (c carry, gates) and whose backward is the backward kernel.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ import torch
 
 from eesen_tpu_torch.ops import build
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): `launches` counts the forward kernel, `bwd_launches` the backward
+# pass (one count per call: the recurrence kernel and the products it feeds)
 launches = 0
+bwd_launches = 0
 
 MAX_THREADS = 1024
 SMEM_LIMIT = 232448           # bytes of shared memory a block may use
@@ -70,12 +79,12 @@ def lstm_direction_ref(
     state_bf16: bool = False, with_residuals: bool = False,
 ):
     """Plain version of the kernel, with the kernel's casts: m (and c)
-    carries in bf16 when state_bf16 else f32; gates in bf16.  Returns m,
-    or (m, c, gates) with with_residuals."""
+    carries in bf16 when state_bf16 else f32; gates in the dtype of x.
+    Returns m, or (m, c, gates) with with_residuals."""
     sdt = torch.bfloat16 if state_bf16 else torch.float32
     m, c, gates = _scan(x, mask, w_x, bias, w_m, ph)
     if with_residuals:
-        return m.to(sdt), c.to(sdt), gates.to(torch.bfloat16)
+        return m.to(sdt), c.to(sdt), gates.to(x.dtype)
     return m.to(sdt)
 
 
@@ -84,18 +93,21 @@ def _split(h: int) -> int:
     return max(1, min(4, MAX_THREADS // h))
 
 
-def lstm_direction(
-    x: torch.Tensor, mask: torch.Tensor, w_x: torch.Tensor,
-    bias: torch.Tensor, w_m: torch.Tensor, ph: torch.Tensor,
-    state_bf16: bool = False, with_residuals: bool = False,
-):
-    """One LSTM direction from a zero state.
+def _check(what: str, dev: torch.device, expect) -> None:
+    """Raise unless every (tensor, shape, dtype) is as expected, contiguous
+    and on `dev`."""
+    for name, (ten, shape, dt) in expect.items():
+        if tuple(ten.shape) != shape or ten.dtype != dt:
+            raise ValueError(
+                f"{what}: {name} must be {dt} {shape}, got "
+                f"{ten.dtype} {tuple(ten.shape)}"
+            )
+        if ten.device != dev or not ten.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on {dev}")
 
-    x [T, B, D] in the compute dtype (bf16 or f32), mask [T, B] f32,
-    w_x [D, 4H] and w_m [H, 4H] in the dtype of x, bias [4H] f32,
-    ph [3, H] f32 (peepholes i, f, o).  Returns the m carry [T, B, H]
-    (bf16 when state_bf16, else f32), or (m, c, gates) with
-    with_residuals (c like m, gates [T, B, 4H] bf16)."""
+
+def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
+    """The forward wrapper proper: kernel on CUDA, plain version on CPU."""
     global launches
     if x.device.type == "cpu":
         return lstm_direction_ref(
@@ -108,25 +120,14 @@ def lstm_direction(
     cdt = x.dtype
     if cdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"lstm_direction: x must be bf16 or f32, got {cdt}")
-    expect = {
+    _check("lstm_direction", x.device, {
+        "x": (x, (t_max, b, d), cdt),
         "mask": (mask, (t_max, b), torch.float32),
         "w_x": (w_x, (d, 4 * h), cdt),
         "bias": (bias, (4 * h,), torch.float32),
         "w_m": (w_m, (h, 4 * h), cdt),
         "ph": (ph, (3, h), torch.float32),
-    }
-    for name, (ten, shape, dt) in expect.items():
-        if tuple(ten.shape) != shape or ten.dtype != dt:
-            raise ValueError(
-                f"lstm_direction: {name} must be {dt} {shape}, got "
-                f"{ten.dtype} {tuple(ten.shape)}"
-            )
-        if ten.device != x.device or not ten.is_contiguous():
-            raise ValueError(
-                f"lstm_direction: {name} must be contiguous on {x.device}"
-            )
-    if not x.is_contiguous():
-        raise ValueError("lstm_direction: x must be contiguous")
+    })
     split = _split(h)
     if split * h > MAX_THREADS:
         raise ValueError(f"lstm_direction: cell_dim {h} > {MAX_THREADS}")
@@ -143,9 +144,7 @@ def lstm_direction(
     c = gates = None
     if with_residuals:
         c = torch.empty((t_max, b, h), dtype=sdt, device=x.device)
-        gates = torch.empty(
-            (t_max, b, 4 * h), dtype=torch.bfloat16, device=x.device
-        )
+        gates = torch.empty((t_max, b, 4 * h), dtype=cdt, device=x.device)
     if t_max > 0 and b > 0:
         err = lib.lstm_fwd(
             x.data_ptr(), mask.data_ptr(), w_x.data_ptr(), bias.data_ptr(),
@@ -160,3 +159,192 @@ def lstm_direction(
     if with_residuals:
         return m, c, gates
     return m
+
+
+def lstm_direction_bwd_ref(
+    x: torch.Tensor, mask: torch.Tensor, gates: torch.Tensor,
+    c: torch.Tensor, m: torch.Tensor, gm: torch.Tensor, w_x: torch.Tensor,
+    w_m: torch.Tensor, ph: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel, step for step as
+    `_fused_bwd_kernel` (lstm_pallas.py:403-482), with its casts: c_raw
+    recomputed from the stored gates and c carry; dgifo rounded to the
+    dtype of x for the three products (float32 sums), unrounded for db and
+    dph.  Returns (dx [T,B,D] dtype of x, dw_x [D,4H], dw_m [H,4H],
+    db [4H], dph [3,H]) float32."""
+    t_max, b, d = x.shape
+    h = w_m.shape[0]
+    cdt = x.dtype
+    f32 = torch.float32
+    gates_f, c_f, gm_f = gates.to(f32), c.to(f32), gm.to(f32)
+    wm = w_m.to(f32)
+    ph_i, ph_f, ph_o = ph[0], ph[1], ph[2]
+    dm = torch.zeros((b, h), dtype=f32, device=x.device)
+    dc = torch.zeros((b, h), dtype=f32, device=x.device)
+    zero = torch.zeros((b, h), dtype=f32, device=x.device)
+    dgifo_all = torch.empty((t_max, b, 4 * h), dtype=cdt, device=x.device)
+    db = torch.zeros(4 * h, dtype=f32, device=x.device)
+    dph = torch.zeros((3, h), dtype=f32, device=x.device)
+    for t in range(t_max - 1, -1, -1):
+        g, i, f, o = gates_f[t].split(h, dim=1)
+        c_prev = c_f[t - 1] if t > 0 else zero
+        c_raw = f * c_prev + i * g
+        mt = mask[t][:, None]
+        tanh_c = torch.tanh(c_raw)
+        dm_total = gm_f[t] + dm
+        dm_raw = dm_total * mt
+        dc_raw = dc * mt
+        do = dm_raw * tanh_c
+        dc_raw = dc_raw + dm_raw * o * (1.0 - tanh_c * tanh_c)
+        do_pre = do * o * (1.0 - o)
+        dc_raw = dc_raw + do_pre * ph_o
+        di_pre = dc_raw * g * i * (1.0 - i)
+        df_pre = dc_raw * c_prev * f * (1.0 - f)
+        dg_pre = dc_raw * i * (1.0 - g * g)
+        dc = dc_raw * f + di_pre * ph_i + df_pre * ph_f + dc * (1.0 - mt)
+        dgifo = torch.cat([dg_pre, di_pre, df_pre, do_pre], dim=1)
+        dgifo_all[t] = dgifo.to(cdt)
+        dm = (torch.matmul(dgifo_all[t].to(f32), wm.t())
+              + dm_total * (1.0 - mt))
+        db += dgifo.sum(0)
+        dph[0] += (di_pre * c_prev).sum(0)
+        dph[1] += (df_pre * c_prev).sum(0)
+        dph[2] += (do_pre * c_raw).sum(0)
+    dg2 = dgifo_all.to(f32).reshape(t_max * b, 4 * h)
+    dx = torch.matmul(dg2, w_x.to(f32).t()).reshape(t_max, b, d).to(cdt)
+    dw_x = torch.matmul(x.to(f32).reshape(t_max * b, d).t(), dg2)
+    m_prev = torch.cat([torch.zeros_like(m[:1]), m[:-1]]).to(cdt).to(f32)
+    dw_m = torch.matmul(m_prev.reshape(t_max * b, h).t(), dg2)
+    return dx, dw_x, dw_m, db, dph
+
+
+def _k_slices(tiles: int, k: int) -> int:
+    """k-slices of a weight-gradient product: about four blocks for each
+    of the 132 SMs, each slice at least 1024 deep."""
+    return max(1, min(-(-4 * 132 // tiles), k // 1024))
+
+
+def lstm_direction_bwd(
+    x: torch.Tensor, mask: torch.Tensor, gates: torch.Tensor,
+    c: torch.Tensor, m: torch.Tensor, gm: torch.Tensor, w_x: torch.Tensor,
+    w_m: torch.Tensor, ph: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Backward pass of one direction from the forward residuals.
+
+    x [T, B, D], gates [T, B, 4H], w_x [D, 4H], w_m [H, 4H] in the compute
+    dtype (bf16 or f32); mask [T, B] f32; c and m (the carries) and gm
+    (the cotangent of m) [T, B, H] in the state dtype; ph [3, H] f32.
+    Returns (dx [T, B, D] compute dtype, dw_x [D, 4H], dw_m [H, 4H],
+    db [4H], dph [3, H]) float32."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return lstm_direction_bwd_ref(x, mask, gates, c, m, gm, w_x, w_m, ph)
+    if x.device.type != "cuda":
+        raise ValueError(f"lstm_direction_bwd: unsupported device {x.device}")
+    t_max, b, d = x.shape
+    h = w_m.shape[0]
+    cdt, sdt = x.dtype, m.dtype
+    if cdt not in (torch.bfloat16, torch.float32) or \
+            sdt not in (torch.bfloat16, torch.float32):
+        raise TypeError("lstm_direction_bwd: x and m must be bf16 or f32")
+    _check("lstm_direction_bwd", x.device, {
+        "x": (x, (t_max, b, d), cdt),
+        "mask": (mask, (t_max, b), torch.float32),
+        "gates": (gates, (t_max, b, 4 * h), cdt),
+        "c": (c, (t_max, b, h), sdt),
+        "m": (m, (t_max, b, h), sdt),
+        "gm": (gm, (t_max, b, h), sdt),
+        "w_x": (w_x, (d, 4 * h), cdt),
+        "w_m": (w_m, (h, 4 * h), cdt),
+        "ph": (ph, (3, h), torch.float32),
+    })
+    split = _split(h)
+    if split * h > MAX_THREADS:
+        raise ValueError(f"lstm_direction_bwd: cell_dim {h} > {MAX_THREADS}")
+    lib = build.load()
+    rb = ROWS_PER_BLOCK
+    # 4*RB*(13H + split*H) bytes: ~115 KB at most for split*H <= 1024
+    assert lib.lstm_bwd_smem_bytes(h, rb, split) <= SMEM_LIMIT
+    dev = x.device
+    f32 = torch.float32
+    dx = torch.empty((t_max, b, d), dtype=cdt, device=dev)
+    dw_x = torch.empty((d, 4 * h), dtype=f32, device=dev)
+    dw_m = torch.empty((h, 4 * h), dtype=f32, device=dev)
+    dbph = torch.empty(7 * h, dtype=f32, device=dev)
+    if t_max == 0 or b == 0:
+        for ten in (dw_x, dw_m, dbph):
+            ten.zero_()
+    else:
+        n_tiles = -(-4 * h // 64)
+        zx = _k_slices(-(-d // 64) * n_tiles, t_max * b)
+        zm = _k_slices(-(-h // 64) * n_tiles, (t_max - 1) * b)
+        scratch = dict(
+            dgifo=torch.empty((t_max, b, 4 * h), dtype=cdt, device=dev),
+            rows=torch.empty((b, 7 * h), dtype=f32, device=dev),
+            wx=torch.empty((zx, d, 4 * h), dtype=f32, device=dev),
+            wm=torch.empty((zm, h, 4 * h), dtype=f32, device=dev),
+        )
+        wm_t = w_m.t().contiguous()          # [4H, H]: coalesced across h
+        err = lib.lstm_bwd(
+            x.data_ptr(), mask.data_ptr(), gates.data_ptr(), c.data_ptr(),
+            m.data_ptr(), gm.data_ptr(), w_x.data_ptr(), wm_t.data_ptr(),
+            ph.data_ptr(), dx.data_ptr(), dw_x.data_ptr(), dw_m.data_ptr(),
+            dbph.data_ptr(), scratch["dgifo"].data_ptr(),
+            scratch["rows"].data_ptr(), scratch["wx"].data_ptr(),
+            scratch["wm"].data_ptr(), t_max, b, d, h,
+            int(cdt == torch.bfloat16), int(sdt == torch.bfloat16), rb, split,
+            zx, zm, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        build.check(err, "lstm_bwd")
+        bwd_launches += 1
+    return dx, dw_x, dw_m, dbph[:4 * h], dbph[4 * h:].view(3, h)
+
+
+def _cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float32 master weights in the compute dtype; any other dtype is
+    left for the kernel's checks to refuse."""
+    return w.to(dtype) if w.dtype == torch.float32 else w
+
+
+class LstmDirection(torch.autograd.Function):
+    """One direction with its gradient: forward = the forward kernel with
+    residuals, backward = the backward kernel (plain versions on the CPU),
+    as `lstm_fused`'s custom VJP (lstm_pallas.py:597-795).  Weights may
+    come in float32 and are cast to the dtype of x here, so that their
+    gradients stay float32 as the JAX kernel's are."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w_x, bias, w_m, ph, state_bf16):
+        w_x, w_m = _cast(w_x, x.dtype), _cast(w_m, x.dtype)
+        m, c, gates = _forward(x, mask, w_x, bias, w_m, ph, state_bf16, True)
+        ctx.save_for_backward(x, mask, gates, c, m, w_x, w_m, ph)
+        return m
+
+    @staticmethod
+    def backward(ctx, gm):
+        x, mask, gates, c, m, w_x, w_m, ph = ctx.saved_tensors
+        dx, dw_x, dw_m, db, dph = lstm_direction_bwd(
+            x, mask, gates, c, m, gm.to(m.dtype).contiguous(), w_x, w_m, ph
+        )
+        return dx, None, dw_x, db, dw_m, dph, None
+
+
+def lstm_direction(
+    x: torch.Tensor, mask: torch.Tensor, w_x: torch.Tensor,
+    bias: torch.Tensor, w_m: torch.Tensor, ph: torch.Tensor,
+    state_bf16: bool = False, with_residuals: bool = False,
+):
+    """One LSTM direction from a zero state.
+
+    x [T, B, D] in the compute dtype (bf16 or f32), mask [T, B] f32,
+    w_x [D, 4H] and w_m [H, 4H] in the dtype of x or float32 (cast to it),
+    bias [4H] f32, ph [3, H] f32 (peepholes i, f, o).  Returns the m carry
+    [T, B, H] (bf16 when state_bf16, else f32), or (m, c, gates) with
+    with_residuals (c like m, gates [T, B, 4H] in the dtype of x).  When
+    grad is enabled and an input requires it, m comes through
+    `LstmDirection`, whose backward is the backward kernel."""
+    if not with_residuals and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_x, bias, w_m, ph)):
+        return LstmDirection.apply(x, mask, w_x, bias, w_m, ph, state_bf16)
+    return _forward(x, mask, _cast(w_x, x.dtype), bias, _cast(w_m, x.dtype),
+                    ph, state_bf16, with_residuals)

@@ -1,0 +1,371 @@
+"""The training loop: train/eval steps + epoch driver (counterpart of
+eesen_tpu/training/trainer.py).
+
+The reference's C++ binary did one epoch of SGD (src/netbin/
+train-ctc-parallel.cc:144-218) and its shell did the learning-rate
+schedule, early stop and resume (steps/train_ctc_parallel.sh:132-190):
+
+- `make_train_step` returns a plain function (PyTorch runs eagerly; there
+  is no jit): forward (BiLSTM stack), CTC (or CE) loss, backward through
+  the LSTM and CTC kernels, clip, update.
+- The greedy token-accuracy monitor (src/net/ctc-loss.cc:235 ErrorRateMSeq)
+  is a device argmax + host edit distance, as in the reference.
+- `Trainer.fit` runs the newbob epoch loop, with checkpoints written by
+  `torch.save` (the JAX package uses orbax) and the same `sched.json`.
+
+Everything runs on `device`, "cuda" unless the caller asks for "cpu".  The
+multi-device step (`make_shard_map_train_step`, the mesh path) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import os
+from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from eesen_tpu_torch.models.model import (
+    AcousticModelConfig, apply_model, as_tensor, check_device, init_model,
+)
+from eesen_tpu_torch.ops.ce import ce_loss
+from eesen_tpu_torch.ops.ctc import ctc_loss
+from eesen_tpu_torch.training.metrics import EpochReport, token_error_counts
+from eesen_tpu_torch.training.optim import (
+    OptimizerConfig, Optimizer, OptState, apply_updates, make_optimizer,
+    tree_leaves, tree_unflatten,
+)
+from eesen_tpu_torch.training.schedule import NewbobConfig, NewbobScheduler
+from eesen_tpu_torch.utils.logging import get_logger
+from eesen_tpu_torch.utils.timer import Timer
+
+log = get_logger("training.trainer")
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: OptState
+    step: int
+
+
+def create_train_state(
+    gen: torch.Generator, model_cfg: AcousticModelConfig,
+    opt_cfg: OptimizerConfig, device="cuda",
+):
+    """(TrainState, optimizer): parameters drawn from `gen` (a CPU
+    torch.Generator) on `device`, a fresh optimizer state, step 0."""
+    params = init_model(gen, model_cfg, device)
+    tx = make_optimizer(opt_cfg)
+    return TrainState(params, tx.init(params), 0), tx
+
+
+def _obj_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
+                     with_argmax=True):
+    """Unnormalized objective sum + monitor metrics for one batch.
+
+    loss="ctc": per-utterance CTC negative log-likelihood.  loss="ce":
+    per-frame cross entropy against frame-aligned labels (labels [B, T],
+    BatchConfig(frame_labels=True)); metrics gain a `correct` count."""
+    logits = apply_model(
+        params, batch["feats"], batch["feat_lengths"], model_cfg,
+        train=train, rng=rng,
+    )
+    metrics = {}
+    if with_argmax:
+        metrics["argmax"] = logits.detach().argmax(dim=-1).to(torch.int32)
+    if loss == "ce":
+        t = logits.shape[1]
+        _, m = ce_loss(logits, batch["feat_lengths"], batch["labels"][:, :t])
+        metrics.update(
+            obj_sum=m["obj_sum"], frames=m["frames"], correct=m["correct"],
+        )
+        return m["obj_sum"], metrics
+    nll = ctc_loss(
+        logits, batch["feat_lengths"], batch["labels"],
+        batch["label_lengths"],
+    )
+    metrics.update(obj_sum=nll.sum(), frames=batch["feat_lengths"].sum())
+    return nll.sum(), metrics
+
+
+def _loss_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
+                      with_argmax=True):
+    obj, metrics = _obj_and_metrics(params, batch, model_cfg, rng, train,
+                                    loss, with_argmax)
+    frames = torch.clamp(metrics["frames"], min=1).to(obj.dtype)
+    return obj / frames, metrics
+
+
+def make_train_step(
+    model_cfg: AcousticModelConfig,
+    tx: Optimizer,
+    loss: str = "ctc",
+    with_argmax: bool = False,
+) -> Callable:
+    """Returns train_step(state, batch, rng, learn_rate, with_argmax=None)
+    -> (state, metrics).  `batch` holds tensors on the parameters' device:
+    feats [B, T, D] f32, feat_lengths [B], labels [B, L], label_lengths [B].
+    `rng` is accepted for dropout, which is not ported yet.  A call's
+    `with_argmax` overrides the default given here (eager PyTorch needs no
+    second step function for it).  The returned state holds new tensors;
+    the old state is left as it was."""
+    loss_kind = loss
+    argmax_default = with_argmax
+
+    def train_step(state: TrainState, batch, rng, learn_rate,
+                   with_argmax: Optional[bool] = None):
+        if with_argmax is None:
+            with_argmax = argmax_default
+        leaves = [p.detach().requires_grad_() for p in
+                  tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        loss_val, metrics = _loss_and_metrics(
+            params, batch, model_cfg, rng, True, loss_kind, with_argmax
+        )
+        grads = torch.autograd.grad(loss_val, leaves)
+        # the epoch's learning rate (newbob decides it between epochs)
+        opt_state = state.opt_state._replace(hyperparams=dict(
+            state.opt_state.hyperparams, learning_rate=float(learn_rate)
+        ))
+        updates, new_opt_state = tx.update(
+            tree_unflatten(state.params, list(grads)), opt_state,
+            state.params,
+        )
+        new_params = apply_updates(state.params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss_val.detach()
+        return TrainState(new_params, new_opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(
+    model_cfg: AcousticModelConfig, loss: str = "ctc",
+) -> Callable:
+    """Cross-validation step (no backprop): the reference's
+    --cross-validate=true mode (train-ctc-parallel.cc:116-119,206)."""
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            _, metrics = _loss_and_metrics(
+                params, batch, model_cfg, None, False, loss
+            )
+        return metrics
+
+    return eval_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    model: AcousticModelConfig = AcousticModelConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    newbob: NewbobConfig = NewbobConfig()
+    seed: int = 777
+    report_step: int = 100       # log every N batches (reference report_step)
+    checkpoint_dir: Optional[str] = None
+    # the host-side token-error-rate monitor every N train batches; 1 =
+    # every batch like the reference's ErrorRateMSeq (ctc-loss.cc:235).
+    # CV epochs use every batch since newbob halves on CV accuracy.
+    ter_step: int = 1
+    # objective: "ctc" (train-ctc-parallel) or "ce" (train-ce-parallel,
+    # frame-aligned labels; pair with BatchConfig(frame_labels=True))
+    loss: str = "ctc"
+
+
+class Trainer:
+    """Epoch-level driver: newbob LR schedule, CV early stop, checkpointing.
+    Parameters are drawn from torch.Generator().manual_seed(cfg.seed)."""
+
+    def __init__(self, cfg: TrainerConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = check_device(device)
+        self.state, self.tx = create_train_state(
+            torch.Generator().manual_seed(cfg.seed), cfg.model,
+            cfg.optimizer, self.device,
+        )
+        self.train_step = make_train_step(cfg.model, self.tx, loss=cfg.loss)
+        self.eval_step = make_eval_step(cfg.model, loss=cfg.loss)
+        self.sched = NewbobScheduler(cfg.newbob)
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {
+            "feats": as_tensor(batch["feats"], torch.float32).to(self.device),
+            **{k: as_tensor(batch[k], torch.int64).to(self.device)
+               for k in ("feat_lengths", "labels", "label_lengths")},
+        }
+
+    def run_epoch(
+        self, batches: Iterable[Dict[str, np.ndarray]], train: bool,
+        learn_rate: float,
+    ) -> EpochReport:
+        report = EpochReport()
+        timer = Timer()
+        n = 0
+        ter_step = max(self.cfg.ter_step, 1) if train else 1
+        # metrics are processed ONE STEP LATE: the host fetch + edit
+        # distance for step t runs while step t+1 executes on the device
+        pending = None   # (metrics, batch_meta, want_ter)
+
+        def process(entry):
+            metrics, meta, want_ter = entry
+            feat_lengths, labels, label_lengths = meta
+            if want_ter and "correct" in metrics:
+                # CE: frame accuracy (src/net/ce-loss.cc monitor)
+                refs = int(metrics["frames"])
+                errs = refs - int(metrics["correct"])
+            elif want_ter:
+                errs, refs = token_error_counts(
+                    metrics["argmax"].cpu().numpy(),
+                    feat_lengths, labels, label_lengths,
+                )
+            else:
+                errs = refs = 0
+            report.update(
+                float(metrics["obj_sum"]), int(metrics["frames"]),
+                errs, refs, int(np.sum(feat_lengths > 0)),
+            )
+
+        for batch in batches:
+            batch.pop("keys", None)
+            dev_batch = self._to_device(batch)
+            if train:
+                # the argmax only on TER batches; CE needs none at all
+                want_ter_now = (n + 1) % ter_step == 0
+                self.state, metrics = self.train_step(
+                    self.state, dev_batch, None, learn_rate,
+                    with_argmax=want_ter_now and self.cfg.loss != "ce",
+                )
+            else:
+                metrics = self.eval_step(self.state.params, dev_batch)
+            n += 1
+            if pending is not None:
+                process(pending)
+            pending = (
+                metrics,
+                (np.asarray(batch["feat_lengths"]),
+                 np.asarray(batch["labels"]),
+                 np.asarray(batch["label_lengths"])),
+                n % ter_step == 0,
+            )
+            if n % self.cfg.report_step == 0:
+                fps = report.total_frames / max(timer.elapsed(), 1e-9)
+                log.info(
+                    "%s batch %d: %s (%.0f frames/sec)",
+                    "TRAIN" if train else "CV", n, report.report(), fps,
+                )
+        if pending is not None:
+            process(pending)
+        return report
+
+    def fit(
+        self,
+        train_batches_fn: Callable[[], Iterable[Dict[str, np.ndarray]]],
+        cv_batches_fn: Callable[[], Iterable[Dict[str, np.ndarray]]],
+        resume: bool = True,
+    ) -> Dict[int, Dict[str, float]]:
+        """Run newbob epochs until convergence; returns per-epoch metrics.
+
+        With a checkpoint_dir and resume=True, training continues from the
+        latest saved epoch (the reference resumed via its .epoch/.cvacc/
+        .halving/.lrate dotfiles, steps/train_ctc_parallel.sh:74-78)."""
+        if resume and self.cfg.checkpoint_dir:
+            latest = self.latest_checkpoint()
+            if latest is not None:
+                log.info("resuming from epoch %d checkpoint", latest)
+                self.restore_checkpoint(latest)
+        # batch sources may take the (1-based) epoch number: the hook the
+        # multi-tag augmentation rotation uses
+        takes_epoch = bool(inspect.signature(train_batches_fn).parameters)
+        history = {}
+        while True:
+            if self.sched.finished or self.sched.epoch > self.sched.cfg.max_iters:
+                # a restored schedule that already signalled completion
+                # trains no phantom extra epoch (steps/train_ctc_parallel.sh:
+                # 132-190 ends on the final `.epoch` dotfile)
+                log.info(
+                    "schedule complete (epoch %d > max_iters %d or finished) "
+                    "-- skipping training",
+                    self.sched.epoch, self.sched.cfg.max_iters,
+                )
+                break
+            epoch = self.sched.epoch
+            lr = self.sched.learn_rate
+            tr = self.run_epoch(
+                train_batches_fn(epoch) if takes_epoch
+                else train_batches_fn(),
+                True, lr,
+            )
+            cv = self.run_epoch(cv_batches_fn(), False, lr)
+            log.info(
+                "EPOCH %d: lrate %.6g, TRAIN ACCURACY %.4f%%, "
+                "VALID ACCURACY %.4f%%",
+                epoch, lr, tr.token_accuracy, cv.token_accuracy,
+            )
+            history[epoch] = {
+                "train_acc": tr.token_accuracy,
+                "cv_acc": cv.token_accuracy,
+                "train_obj": tr.obj_per_frame,
+                "cv_obj": cv.obj_per_frame,
+            }
+            stop, _ = self.sched.report(cv.token_accuracy)
+            if self.cfg.checkpoint_dir:
+                # saved after the schedule update, so a resume continues
+                # with the NEXT epoch
+                self.save_checkpoint(epoch)
+            if stop:
+                break
+        return history
+
+    # ---- checkpointing (replaces nnet.iterN files + dotfiles) ----
+    def _ckpt_path(self, epoch: int) -> str:
+        return os.path.join(os.path.abspath(self.cfg.checkpoint_dir),
+                            f"epoch_{epoch}", "state.pt")
+
+    def latest_checkpoint(self) -> Optional[int]:
+        d = self.cfg.checkpoint_dir
+        if not d or not os.path.isdir(d):
+            return None
+        epochs = [
+            int(name.split("_", 1)[1])
+            for name in os.listdir(d)
+            if name.startswith("epoch_") and name.split("_", 1)[1].isdigit()
+            and os.path.exists(self._ckpt_path(int(name.split("_", 1)[1])))
+        ]
+        return max(epochs) if epochs else None
+
+    def save_checkpoint(self, epoch: int) -> None:
+        """epoch_<N>/state.pt (parameters, optimizer state, step) and
+        sched.json, each written under a private name and renamed into
+        place."""
+        path = self._ckpt_path(epoch)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        st = self.state
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({
+            "params": st.params,
+            "opt_state": {"hyperparams": dict(st.opt_state.hyperparams),
+                          "inner": dict(st.opt_state.inner)},
+            "step": int(st.step),
+        }, tmp)
+        os.replace(tmp, path)
+        sched = os.path.join(os.path.abspath(self.cfg.checkpoint_dir),
+                             "sched.json")
+        self.sched.save(f"{sched}.tmp")
+        os.replace(f"{sched}.tmp", sched)
+
+    def restore_checkpoint(self, epoch: int) -> None:
+        d = torch.load(self._ckpt_path(epoch), map_location=self.device,
+                       weights_only=True)
+        self.state = TrainState(
+            d["params"],
+            OptState(d["opt_state"]["hyperparams"], d["opt_state"]["inner"]),
+            int(d["step"]),
+        )
+        sched_path = os.path.join(
+            os.path.abspath(self.cfg.checkpoint_dir), "sched.json"
+        )
+        if os.path.exists(sched_path):
+            self.sched = NewbobScheduler.load(sched_path, self.cfg.newbob)

@@ -1,0 +1,182 @@
+"""The port's CTC (eesen_tpu_torch/ops/ctc.py; the recursions'
+plain version in ops/ctc_cuda.py on the CPU) against the JAX package: the
+Pallas kernels in interpret mode, the XLA scan, and jax.grad of
+`ctc_loss`; plus torch's own CTC loss as an independent check."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eesen_tpu.ops import ctc as jctc
+from eesen_tpu.ops.ctc_pallas import ctc_alpha_beta_pallas
+from eesen_tpu_torch.ops import ctc as tctc
+from eesen_tpu_torch.ops import ctc_cuda
+from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
+
+
+def case(seed, t=12, v=7):
+    """Five rows: full length with repeated labels, shorter rows, a row
+    with label length 0, and a padded row (0 frames, 0 labels) as
+    training/batching.py makes with fixed_batch=True."""
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((5, t, v)) * 2.0).astype(np.float32)
+    logit_lengths = np.array([t, t - 2, t // 2 + 1, 0, t - 1], np.int32)
+    label_lengths = np.array([4, 3, 0, 0, 2], np.int32)
+    labels = rng.integers(1, v, (5, 4)).astype(np.int32)
+    labels[0, 1] = labels[0, 0]          # repeats: a skip is not allowed
+    labels[1, 2] = labels[1, 1]
+    for i, n in enumerate(label_lengths):
+        labels[i, n:] = 0
+    return logits, logit_lengths, labels, label_lengths
+
+
+def prep(logits, logit_lengths, labels, label_lengths):
+    """The kernels' inputs, made by the JAX package's own prep."""
+    _, _, can_skip, _, lp_e = jctc._ctc_prep(
+        jnp.asarray(logits), jnp.asarray(logit_lengths), jnp.asarray(labels),
+        jnp.asarray(label_lengths), 0,
+    )
+    can_skip_f = np.where(np.asarray(can_skip), 0.0, LOG_ZERO).astype(
+        np.float32)
+    s = lp_e.shape[-1]
+    _, _, init = tctc._final_states(torch.from_numpy(label_lengths), s)
+    return np.array(lp_e), can_skip_f, init.numpy(), np.array(can_skip)
+
+
+def assert_log_close(got, want, rtol=1e-5, atol=1e-4):
+    """LOG_ZERO positions identical; elsewhere within tolerance."""
+    got, want = np.asarray(got), np.asarray(want)
+    finite = want > LOG_ZERO_THRESHOLD
+    np.testing.assert_array_equal(got > LOG_ZERO_THRESHOLD, finite)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_alpha_beta_ref_matches_pallas(seed):
+    """The plain version against the TPU kernels in interpret mode: the
+    same log_add, so sums agree to float32 rounding (atol 1e-4 on values
+    of tens)."""
+    logits, ll, labels, lab_l = case(seed)
+    lp_e, skip_f, init, _ = prep(logits, ll, labels, lab_l)
+    a_p, b_p = ctc_alpha_beta_pallas(
+        jnp.asarray(lp_e), jnp.asarray(skip_f), jnp.asarray(init),
+        jnp.asarray(ll), interpret=True,
+    )
+    a_t, b_t = ctc_cuda.ctc_alpha_beta(
+        torch.from_numpy(lp_e), torch.from_numpy(skip_f),
+        torch.from_numpy(init), torch.from_numpy(ll),
+    )
+    assert a_t.dtype == b_t.dtype == torch.float32
+    assert_log_close(a_t.numpy(), a_p)
+    assert_log_close(b_t.numpy(), b_p)
+
+
+def test_padded_row_alpha_is_init_and_beta_log_zero():
+    logits, ll, labels, lab_l = case(2)
+    lp_e, skip_f, init, _ = prep(logits, ll, labels, lab_l)
+    a, b = ctc_cuda.ctc_alpha_beta_ref(
+        torch.from_numpy(lp_e), torch.from_numpy(skip_f),
+        torch.from_numpy(init), torch.from_numpy(ll),
+    )
+    row0 = torch.where(torch.arange(lp_e.shape[2]) <= 1,
+                       torch.from_numpy(lp_e[3, 0]), LOG_ZERO)
+    assert torch.equal(a[3], row0.expand_as(a[3]))
+    assert torch.all(b[3] == LOG_ZERO)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_alpha_beta_ref_matches_forward_backward(seed):
+    """Kernel form (ops/ctc_cuda) against the XLA-scan form, in both
+    packages."""
+    logits, ll, labels, lab_l = case(seed)
+    lp_e, skip_f, init, can_skip = prep(logits, ll, labels, lab_l)
+    ll_j, a_j, b_j = jctc.ctc_forward_backward(
+        jnp.asarray(lp_e), jnp.asarray(can_skip), jnp.asarray(ll),
+        jnp.asarray(lab_l),
+    )
+    ll_t, a_t, b_t = tctc.ctc_forward_backward(
+        torch.from_numpy(lp_e), torch.from_numpy(can_skip),
+        torch.from_numpy(ll), torch.from_numpy(lab_l),
+    )
+    a_r, b_r = ctc_cuda.ctc_alpha_beta_ref(
+        torch.from_numpy(lp_e), torch.from_numpy(skip_f),
+        torch.from_numpy(init), torch.from_numpy(ll),
+    )
+    np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=1e-5,
+                               atol=1e-5)
+    for got, want in ((a_t, a_j), (b_t, b_j), (a_r, a_j), (b_r, b_j)):
+        assert_log_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 4])
+def test_nll_and_dlogits_match_jax_grad(seed):
+    """NLL and d(sum w*nll)/dlogits against jax.value_and_grad of the JAX
+    ctc_loss (XLA path on the CPU): float32 sums in another order, rtol
+    1e-5 / atol 1e-5 (the tolerance the JAX package holds its own two
+    paths to).  The padded row's NLL is -log p(blank | frame 0), not 0,
+    and its gradient is exactly 0."""
+    logits, ll, labels, lab_l = case(seed)
+    w = np.random.default_rng(seed + 100).uniform(0.5, 2.0, 5).astype(
+        np.float32)
+
+    def f(x):
+        nll = jctc.ctc_loss(x, jnp.asarray(ll), jnp.asarray(labels),
+                            jnp.asarray(lab_l))
+        return jnp.sum(nll * w), nll
+
+    (_, nll_j), g_j = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    nll_t = tctc.ctc_loss(x, torch.from_numpy(ll), torch.from_numpy(labels),
+                          torch.from_numpy(lab_l))
+    (g_t,) = torch.autograd.grad((nll_t * torch.from_numpy(w)).sum(), x)
+    nll_t = nll_t.detach()
+    np.testing.assert_allclose(nll_t.numpy(), np.asarray(nll_j),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-5,
+                               atol=1e-5)
+    blank0 = -torch.log_softmax(torch.from_numpy(logits[3, 0]), -1)[0]
+    assert float(nll_t[3]) == pytest.approx(float(blank0), rel=1e-6)
+    assert float(nll_t[3]) > 0.5
+    assert torch.all(g_t[3] == 0)
+
+
+def test_nll_matches_torch_ctc_loss():
+    """An independent check: torch.nn.functional.ctc_loss on the rows
+    with frames and labels (it gives +inf-free values there), float32
+    sums in another order."""
+    logits, ll, labels, lab_l = case(5)
+    rows = [0, 1, 4]
+    nll = tctc.ctc_loss(torch.from_numpy(logits), torch.from_numpy(ll),
+                        torch.from_numpy(labels), torch.from_numpy(lab_l))
+    lp = torch.log_softmax(torch.from_numpy(logits[rows]), -1)
+    want = torch.nn.functional.ctc_loss(
+        lp.transpose(0, 1), torch.from_numpy(labels[rows]).long(),
+        torch.from_numpy(ll[rows]).long(),
+        torch.from_numpy(lab_l[rows]).long(), blank=0, reduction="none",
+    )
+    np.testing.assert_allclose(nll[rows].numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("normalize", ["frames", "sequences", "none"])
+def test_ctc_loss_mean_matches_jax(normalize):
+    logits, ll, labels, lab_l = case(6)
+    want = jctc.ctc_loss_mean(jnp.asarray(logits), jnp.asarray(ll),
+                              jnp.asarray(labels), jnp.asarray(lab_l),
+                              normalize=normalize)
+    got = tctc.ctc_loss_mean(torch.from_numpy(logits), torch.from_numpy(ll),
+                             torch.from_numpy(labels),
+                             torch.from_numpy(lab_l), normalize=normalize)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_expand_labels_matches_jax():
+    labels = np.array([[3, 3, 5], [2, 0, 0]], np.int32)
+    np.testing.assert_array_equal(
+        tctc.expand_labels(torch.from_numpy(labels)).numpy(),
+        np.asarray(jctc.expand_labels(jnp.asarray(labels))),
+    )

@@ -15,7 +15,9 @@ from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder.arpa import arpa_to_fst
 from eesen_tpu_torch.decoder.ctc_graph import build_lg, build_tlg, compile_lang
 from eesen_tpu_torch.decoder.graph_compile import compile_graph
-from eesen_tpu_torch.ops import beam_cuda, lstm_cuda
+from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
+from eesen_tpu_torch.ops.ctc import _ctc_prep, _final_states
+from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
 from eesen_tpu_torch.recipes.lm import estimate_bigram_arpa
 from eesen_tpu_torch.recipes.synth_corpus import SynthConfig, make_lexicon
 
@@ -53,7 +55,8 @@ def test_lstm_kernel_matches_plain(dev, dtype, state_bf16, tol):
                                         with_residuals=True)
     torch.cuda.synchronize()
     assert lstm_cuda.launches == before + 1
-    # m and c at the stated tolerance; the gates are bf16 in every mode
+    # m and c at the stated tolerance; the gates, in the dtype of x, at
+    # the bf16 tolerance
     for g, w, (rtol, atol) in zip(got, want, (tol, tol, (2e-2, 2e-3))):
         assert g.dtype == w.dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
@@ -61,10 +64,103 @@ def test_lstm_kernel_matches_plain(dev, dtype, state_bf16, tol):
 
 
 def test_lstm_kernel_rejects_bad_inputs(dev):
+    """Weights in the dtype of x or float32 are taken (float32 is cast);
+    any other dtype is refused."""
     args = lstm_args(dev, torch.bfloat16)
-    args["w_m"] = args["w_m"].float()
+    args["w_m"] = args["w_m"].half()
     with pytest.raises(ValueError):
         lstm_cuda.lstm_direction(**args)
+
+
+def lstm_residuals(dev, dtype, state_bf16, seed=1):
+    args = lstm_args(dev, dtype, seed=seed)
+    m, c, gates = lstm_cuda.lstm_direction(**args, state_bf16=state_bf16,
+                                           with_residuals=True)
+    gm = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        m.shape).astype(np.float32)).to(dev, m.dtype)
+    return dict(x=args["x"], mask=args["mask"], gates=gates, c=c, m=m,
+                gm=gm, w_x=args["w_x"], w_m=args["w_m"], ph=args["ph"])
+
+
+@pytest.mark.parametrize("dtype,state_bf16,tol", [
+    (torch.float32, False, (1e-4, 1e-5)),      # sums in another order
+    (torch.bfloat16, False, (5e-2, 5e-3)),     # the JAX fused-grad tolerance
+    (torch.bfloat16, True, (5e-2, 5e-3)),
+])
+def test_lstm_bwd_kernel_matches_plain(dev, dtype, state_bf16, tol):
+    inp = lstm_residuals(dev, dtype, state_bf16)
+    before = lstm_cuda.bwd_launches
+    got = lstm_cuda.lstm_direction_bwd(**inp)
+    want = lstm_cuda.lstm_direction_bwd_ref(**inp)
+    torch.cuda.synchronize()
+    assert lstm_cuda.bwd_launches == before + 1
+    # dx in the dtype of x at the dx tolerance (a bf16 rounding away)
+    dx_tol = tol if dtype == torch.float32 else (5e-2, 2e-2)
+    for name, g, w, (rtol, atol) in zip(
+            ("dx", "dw_x", "dw_m", "db", "dph"), got, want,
+            (dx_tol, tol, tol, tol, tol)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+
+
+def test_lstm_direction_autograd_on_card(dev):
+    """Gradients of the autograd Function on the card (both kernels)
+    against the same Function on the CPU (both plain versions), f32."""
+    args = lstm_args(dev, torch.float32, seed=2)
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (13, 3, 32)).astype(np.float32))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        a = {k: v.to(d).requires_grad_(k != "mask") for k, v in args.items()}
+        m = lstm_cuda.lstm_direction(**a)
+        loss = (m * a["mask"][:, :, None] * w.to(d)).sum()
+        names = [k for k in a if k != "mask"]
+        grads.append(torch.autograd.grad(loss, [a[k] for k in names]))
+    for name, g, c in zip(names, *grads):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
+                                   msg=name)
+
+
+def ctc_inputs(dev, b=6, t=40, v=9, l=8, seed=0):
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.standard_normal((b, t, v)).astype(
+        np.float32))
+    ll = torch.tensor([t, t - 5, 20, 0, t - 1, 1][:b])
+    lab_l = torch.tensor([l, l - 2, 5, 0, 0, 1][:b])
+    labels = torch.from_numpy(rng.integers(1, v, (b, l)))
+    labels[0, 1] = labels[0, 0]                          # a repeat
+    _, _, can_skip, _, lp_e = _ctc_prep(logits, labels, lab_l, 0)
+    _, _, init = _final_states(lab_l, lp_e.shape[2])
+    skip = torch.where(can_skip, 0.0, LOG_ZERO)
+    return [x.to(dev).contiguous() for x in (lp_e, skip, init, ll)]
+
+
+def test_ctc_kernels_match_plain(dev):
+    """LOG_ZERO positions identical; elsewhere float32 log-space sums,
+    rtol 1e-5 / atol 1e-4."""
+    inp = ctc_inputs(dev)
+    before = (ctc_cuda.alpha_launches, ctc_cuda.beta_launches)
+    got = ctc_cuda.ctc_alpha_beta(*inp)
+    want = ctc_cuda.ctc_alpha_beta_ref(*inp)
+    torch.cuda.synchronize()
+    assert (ctc_cuda.alpha_launches, ctc_cuda.beta_launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        fin = w > LOG_ZERO_THRESHOLD
+        assert torch.equal(g > LOG_ZERO_THRESHOLD, fin)
+        torch.testing.assert_close(g[fin], w[fin], rtol=1e-5, atol=1e-4)
+    # the padded row: alpha is the t=0 init row, beta all LOG_ZERO
+    assert torch.equal(got[0][3], got[0][3, :1].expand_as(got[0][3]))
+    assert torch.all(got[1][3] == LOG_ZERO)
+
+
+def test_ctc_kernels_refuse_too_many_states(dev):
+    s = ctc_cuda.MAX_STATES + 1
+    z = torch.zeros((1, 2, s), device=dev)
+    with pytest.raises(ValueError):
+        ctc_cuda.ctc_alpha_beta(z, z[:, 0], z[:, 0],
+                                torch.tensor([2], device=dev))
 
 
 @pytest.mark.parametrize("m,k", [(100, 64), (4096, 512), (14336, 512)])

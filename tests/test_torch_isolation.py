@@ -13,8 +13,10 @@ import torch
 from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder import graph_compile as t_gc
 from eesen_tpu_torch.models import model as tmodel
-from eesen_tpu_torch.ops import beam_cuda, lstm_cuda
+from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
 from eesen_tpu_torch.recipes import run as trun
+from eesen_tpu_torch.training import optim as toptim
+from eesen_tpu_torch.training import trainer as ttrainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "eesen_tpu")
@@ -67,7 +69,7 @@ def tiny_graph():
 
 @pytest.mark.parametrize("entry", [
     "init_model", "params_from_jax", "device_graph", "posteriors",
-    "decode",
+    "decode", "create_train_state", "trainer", "opt_state_from_jax",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
     cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
@@ -82,6 +84,13 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
             params, cfg, np.zeros((1, 2, 4), np.float32), [2]),
         "decode": lambda: trun.decode(
             params, cfg, tiny_graph(), {"u": np.zeros((2, 4), np.float32)}),
+        "create_train_state": lambda: ttrainer.create_train_state(
+            torch.Generator(), cfg, toptim.OptimizerConfig()),
+        "trainer": lambda: ttrainer.Trainer(ttrainer.TrainerConfig(
+            model=cfg)),
+        "opt_state_from_jax": lambda: toptim.opt_state_from_jax(
+            type("S", (), {"inner": (), "hyperparams": {
+                "learning_rate": 0.0}})()),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -103,14 +112,34 @@ def test_wrappers_refuse_other_devices():
             torch.empty((2, 200), dtype=torch.int32, device=meta),
             torch.empty((2, 200), device=meta), 8, 1.0,
         )
+    e = lambda *s: torch.empty(s, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_cuda.lstm_direction_bwd(
+            e(3, 2, 4), e(3, 2), e(3, 2, 8), e(3, 2, 2), e(3, 2, 2),
+            e(3, 2, 2), e(4, 8), e(2, 8), e(3, 2),
+        )
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_cuda.ctc_alpha_beta(e(2, 3, 5), e(2, 5), e(2, 5),
+                                torch.empty(2, dtype=torch.int32,
+                                            device=meta))
+
+
+def counts():
+    return (lstm_cuda.launches, lstm_cuda.bwd_launches, beam_cuda.launches,
+            ctc_cuda.alpha_launches, ctc_cuda.beta_launches)
 
 
 def test_counters_do_not_move_on_cpu():
-    before = (lstm_cuda.launches, beam_cuda.launches)
+    before = counts()
     beam_cuda.dedup_prune(torch.zeros((1, 130), dtype=torch.int32),
                           torch.zeros((1, 130)), 4, 1.0)
-    lstm_cuda.lstm_direction(
-        torch.zeros((2, 1, 3)), torch.ones((2, 1)), torch.zeros((3, 8)),
+    w_x = torch.zeros((3, 8), requires_grad=True)
+    m = lstm_cuda.lstm_direction(
+        torch.zeros((2, 1, 3)), torch.ones((2, 1)), w_x,
         torch.zeros(8), torch.zeros((2, 8)), torch.zeros((3, 2)),
     )
-    assert (lstm_cuda.launches, beam_cuda.launches) == before
+    m.sum().backward()                    # the backward's plain version
+    assert w_x.grad is not None
+    ctc_cuda.ctc_alpha_beta(torch.zeros((1, 2, 3)), torch.zeros((1, 3)),
+                            torch.zeros((1, 3)), torch.tensor([2]))
+    assert counts() == before

@@ -77,12 +77,18 @@ def test_plain_direction_matches_fused_kernel_bf16(seed, block_t, state_bf16):
 
 def test_residuals_are_consistent():
     """with_residuals: gates and c reproduce m (o * tanh(c) on valid
-    steps), in the dtypes of the kernel's contract."""
+    steps), in the dtypes of the kernel's contract (gates in the dtype of
+    x, c in the state dtype)."""
     _, p, x, mask = setup(seed=5)
     m, c, gates = lstm_cuda.lstm_direction(
         **torch_args(p, x, mask, torch.float32), with_residuals=True
     )
-    assert gates.dtype == torch.bfloat16 and c.dtype == torch.float32
+    assert gates.dtype == torch.float32 and c.dtype == torch.float32
+    m_bf, c_bf, g_bf = lstm_cuda.lstm_direction(
+        **torch_args(p, x, mask, torch.bfloat16), state_bf16=True,
+        with_residuals=True,
+    )
+    assert g_bf.dtype == c_bf.dtype == m_bf.dtype == torch.bfloat16
     h = m.shape[-1]
     o = gates[..., 3 * h:].float()
     valid = torch.from_numpy(mask)[:, :, None] > 0
