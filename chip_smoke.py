@@ -47,9 +47,43 @@ Phases, one JSON line each:
           lstm_fwd, 8 lstm_bwd, 1 ctc_alpha and 1 ctc_beta launches;
           seconds per step and audio-s/s = B*T*0.010 / (s per step);
           (iii) one step under the profiler.
+  lstm_v1 the v1 route at the LibriSpeech width: (i) kernel lstm_scan_fwd
+          vs its plain version (B=128, T=768, H=640, training lengths
+          with a length-0 row; m, c, c_raw at the lstm tolerance; the
+          gates at the bf16 one against the plain step from the kernel's
+          own carries, and within BWD_REL_L2 of the free-running plain
+          version); (ii) kernel lstm_scan_bwd vs its plain version
+          on those residuals and a random gm (dxw within BWD_DX_TOL and
+          BWD_REL_L2); (iii) the v1 route against the fused route on the
+          card (D=1280, the same inputs and f32 weights): m at the lstm
+          tolerance, the gradients of x, W_x, W_m, bias and peepholes
+          within BWD_REL_L2; (iv) the route choice: `_direction_scan` at
+          H=1152 (D=1152, B=8, T=64), counters zeroed just before and read
+          just after, must launch lstm_scan_fwd and lstm_scan_bwd once and
+          lstm_fwd / lstm_bwd never, and match the CPU plain run (m at
+          the lstm tolerance, gradients within BWD_REL_L2).
+  libri   the LibriSpeech char model (4 x 640, 360-d input, 30 targets,
+          random weights from a seed): (i) serve B=8, T=512 through
+          recipes.run.posteriors (8 lstm_fwd launches), log-posteriors
+          within LP_ATOL of the CPU plain run; (ii) train without dropout,
+          SGD, B=128, T=768, L=200 (S=401), LIBRI_STEPS chained steps:
+          finite losses, per step 8 lstm_fwd, 8 lstm_bwd, 1 ctc_alpha, 1
+          ctc_beta; s/step and audio-s/s at 0.030 s a frame, and one step
+          under the profiler; (iii) train
+          with the recipe's dropout (recurrent 0.2 no_mem_loss and forward
+          0.2, per sequence, twiddle): one step on 8 rows on the card and
+          on the CPU from the same parameters and generator seed (the same
+          masks; loss and clipped gradients as in train (i)), then one
+          step at B=20 (the recipe's num_sequence) on the card: finite
+          loss, seconds, peak memory; no LSTM kernel launches (the
+          dropout scan runs in torch ops), 1 ctc_alpha, 1 ctc_beta.
   timing  kernel and plain-version times at the main paths' shapes (CUDA
           events, median) beside each kernel's bound, and the library
-          call where one computes the same function (torch's ctc_loss).
+          call where one computes the same function (torch's ctc_loss);
+          at H=640 also kernels lstm_scan_fwd/bwd (B=128, T=768), kernels
+          lstm_fwd/lstm_bwd at D in {360, 1280} (B=128, T=768, and
+          serving B=8, T=512), and the two routes' forward + backward per
+          direction-layer at D=1280.
   profile the forward (B=8, T=512) and the decode of its posteriors:
           wall ms (host clock to synchronize, profiler off; decode also
           per frame), then under torch.profiler the device-busy ms (sum
@@ -102,6 +136,15 @@ TRAIN_B, TRAIN_T, TRAIN_L = 128, 768, 100
 TRAIN_HEAD = (768, 731, 640, 512, 397, 256, 128, 0)   # rows 0-7; rest 768
 TRAIN_STEPS = 5
 LEARN_RATE = 4e-5
+# the LibriSpeech char recipe (recipes/config.py:149-170): 4 x 640 over
+# 360-d input (40 fbank + deltas, spliced +-1), 30 targets (blank + 29
+# characters; the recipe takes the count from its lang dir); 3 frames per
+# 10 ms subsampled, so 0.030 audio-s per frame (recipes/config.py:60-65)
+LIBRI_D, LIBRI_H, LIBRI_V = 360, 640, 30
+LIBRI_L, LIBRI_STEPS, LIBRI_DROP_B = 200, 3, 20
+LIBRI_FRAME_S = 0.030
+# a direction kernels 1 and 3 cannot take: the v1 route
+V1_H = 1152
 # card (kernels, state_bf16) vs CPU (plain versions, f32 state as the JAX
 # package's CPU path), bf16 compute: the loss through four layers as the
 # serving check's log-posteriors; the gradients differ by the bf16
@@ -157,7 +200,7 @@ def lstm_inputs(d: int, h: int, dev, seed: int):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dt)
 
     # layer 1 sees normalized features, later layers LSTM outputs in (-1, 1)
-    x = rng.standard_normal((T_MAX, B, d)) if d == 120 else \
+    x = rng.standard_normal((T_MAX, B, d)) if d in (120, LIBRI_D) else \
         rng.uniform(-1, 1, (T_MAX, B, d))
     u = lambda *s: rng.uniform(-0.1, 0.1, s)
     return dict(
@@ -287,19 +330,27 @@ def _to_cpu(params):
 
 
 def counters():
-    from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
+    from eesen_tpu_torch.ops import (
+        beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda,
+    )
 
     return {"lstm_fwd": lstm_cuda.launches, "dedup_prune": beam_cuda.launches,
             "lstm_bwd": lstm_cuda.bwd_launches,
+            "lstm_scan_fwd": lstm_v1_cuda.launches,
+            "lstm_scan_bwd": lstm_v1_cuda.bwd_launches,
             "ctc_alpha": ctc_cuda.alpha_launches,
             "ctc_beta": ctc_cuda.beta_launches}
 
 
 def reset_counters():
-    from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
+    from eesen_tpu_torch.ops import (
+        beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda,
+    )
 
     lstm_cuda.launches = 0
     lstm_cuda.bwd_launches = 0
+    lstm_v1_cuda.launches = 0
+    lstm_v1_cuda.bwd_launches = 0
     beam_cuda.launches = 0
     ctc_cuda.alpha_launches = 0
     ctc_cuda.beta_launches = 0
@@ -434,8 +485,8 @@ def train_lstm_inputs(d: int, h: int, dev, seed: int, state_bf16: bool):
     lens = torch.from_numpy(train_lengths()).to(dev)
     mask = (torch.arange(TRAIN_T, device=dev)[:, None]
             < lens[None, :]).float()
-    x = rng.standard_normal((TRAIN_T, TRAIN_B, d)) if d == 120 else \
-        rng.uniform(-1, 1, (TRAIN_T, TRAIN_B, d))
+    x = rng.standard_normal((TRAIN_T, TRAIN_B, d)) \
+        if d in (120, LIBRI_D) else rng.uniform(-1, 1, (TRAIN_T, TRAIN_B, d))
     u = lambda *s: rng.uniform(-0.1, 0.1, s)
     fwd = dict(x=t(x, torch.bfloat16), mask=mask,
                w_x=t(u(d, 4 * h), torch.bfloat16), bias=t(u(4 * h)),
@@ -587,23 +638,27 @@ def train_setup(dev):
     return cfg, st, tx, batch
 
 
-def phase_train(dev, state):
+def card_vs_cpu_step(step, st, b8, gen_seed=None):
+    """One train step on the card and on the CPU (plain versions) from
+    the same parameters, a zero momentum state and, with gen_seed, the
+    same dropout masks (both drawn from torch.Generator().manual_seed(
+    gen_seed) on the CPU): the loss within TRAIN_LOSS_RTOL and each
+    parameter's clipped gradient (the momentum buffer after one step)
+    within TRAIN_GRAD_RTOL relative L2."""
     import torch
     from eesen_tpu_torch.training.optim import OptState, unravel
-    from eesen_tpu_torch.training.trainer import TrainState, make_train_step
+    from eesen_tpu_torch.training.trainer import TrainState
 
-    cfg, st, tx, batch = train_setup(dev)
-    step = make_train_step(cfg, tx)
-    # (i) 8 rows, card vs CPU, from the same parameters and a zero state
-    b8 = {k: v[:8] for k, v in batch.items()}
+    gen = lambda: (None if gen_seed is None
+                   else torch.Generator().manual_seed(gen_seed))
     t0 = time.perf_counter()
-    st_card, m_card = step(st, b8, None, LEARN_RATE)
+    st_card, m_card = step(st, b8, gen(), LEARN_RATE)
     cpu_st = TrainState(_to_cpu(st.params), OptState(
         dict(st.opt_state.hyperparams),
         {k: v.cpu() for k, v in st.opt_state.inner.items()}), st.step)
-    st_cpu, m_cpu = step(cpu_st, {k: v.cpu() for k, v in b8.items()}, None,
+    st_cpu, m_cpu = step(cpu_st, {k: v.cpu() for k, v in b8.items()}, gen(),
                          LEARN_RATE)
-    cpu_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     loss_c, loss_h = float(m_card["loss"]), float(m_cpu["loss"])
     loss_err = abs(loss_c - loss_h) / abs(loss_h)
     # one step from a zero momentum buffer leaves the clipped gradient in it
@@ -628,6 +683,404 @@ def phase_train(dev, state):
             and np.isfinite(loss_c)):
         raise AssertionError(f"8-row step: loss {loss_c} vs {loss_h}, "
                              f"grad {worst} rel err {grad_err[worst]}")
+    return {"rows": len(b8["feats"]), "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_rel_err_max": grad_err[worst], "grad_rel_err_worst": worst,
+            "grad_rtol": TRAIN_GRAD_RTOL, "seconds": seconds}
+
+
+def _rel_l2(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _close(name, got, ref, rtol, atol):
+    """Max abs error of got vs ref; raises past rtol/atol (elementwise)."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    g, r = (a.detach().float().cpu().numpy() for a in (got, ref))
+    err = float(np.abs(g - r).max()) if g.size else 0.0
+    if not np.all(np.isfinite(g)) or not np.allclose(g, r, rtol=rtol,
+                                                      atol=atol):
+        raise AssertionError(f"{name}: max abs err {err}")
+    return err
+
+
+def scan_inputs(dev, seed: int):
+    """Kernel 4's inputs at B=128, T=768, H=640 (the LibriSpeech width)
+    with the training lengths: xw ~ N(0, 1) as an input projection
+    of LSTM outputs gives, W_m and ph uniform +-0.1 (param_range)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    h = LIBRI_H
+    lens = torch.from_numpy(train_lengths()).to(dev)
+    mask = (torch.arange(TRAIN_T, device=dev)[:, None]
+            < lens[None, :]).float()
+    return dict(xw=t(rng.standard_normal((TRAIN_T, TRAIN_B, 4 * h))),
+                mask=mask,
+                w_m=t(rng.uniform(-0.1, 0.1, (h, 4 * h))).to(torch.bfloat16),
+                ph=t(rng.uniform(-0.1, 0.1, (3, h))))
+
+
+def direction_params(d: int, h: int, seed: int, dev):
+    """One direction's float32 parameters, uniform +-0.1, as the model
+    holds them ([D, 4, H], [4, H], [H, 4, H], three [H])."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    u = lambda *s: torch.from_numpy(
+        rng.uniform(-0.1, 0.1, s).astype(np.float32)).to(dev)
+    return {"w_gifo_x": u(d, 4, h), "bias": u(4, h), "w_gifo_m": u(h, 4, h),
+            "phole_i_c": u(h), "phole_f_c": u(h), "phole_o_c": u(h)}
+
+
+PH_KEYS = ("phole_i_c", "phole_f_c", "phole_o_c")
+
+
+def fused_route(x, mask, p, state_bf16=False):
+    """One direction through kernels 1 and 3 (the autograd Function)."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    d, _, h = p["w_gifo_x"].shape
+    return lstm_cuda.lstm_direction(
+        x, mask, p["w_gifo_x"].reshape(d, 4 * h), p["bias"].reshape(4 * h),
+        p["w_gifo_m"].reshape(h, 4 * h),
+        torch.stack([p[k] for k in PH_KEYS]), state_bf16=state_bf16)
+
+
+def v1_route(x, mask, p):
+    """One direction through kernels 4 and 5 (`_v1_direction_tm`)."""
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    return lstm_v1_cuda._v1_direction_tm(
+        x, mask, p["w_gifo_x"], p["bias"], p["w_gifo_m"],
+        *(p[k] for k in PH_KEYS))
+
+
+def route_inputs(dev, seed: int):
+    """A stacked layer's direction at the LibriSpeech width (D=1280,
+    H=640, B=128, T=768, training lengths): x bf16 uniform(-1, 1), f32
+    parameters, and a loss weight for the m carry at valid steps."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d, h = 2 * LIBRI_H, LIBRI_H
+    lens = torch.from_numpy(train_lengths()).to(dev)
+    mask = (torch.arange(TRAIN_T, device=dev)[:, None]
+            < lens[None, :]).float()
+    x = torch.from_numpy(rng.uniform(-1, 1, (TRAIN_T, TRAIN_B, d)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((TRAIN_T, TRAIN_B, h)).astype(
+        np.float32)).to(dev) * mask[:, :, None]
+    return x, mask, direction_params(d, h, seed, dev), w
+
+
+def route_grads(route, x, mask, p, w):
+    """m and the autograd gradients of x and every parameter (the three
+    peepholes stacked) for the loss sum(m * w)."""
+    import torch
+
+    x = x.detach().requires_grad_()
+    pp = {k: v.detach().requires_grad_() for k, v in p.items()}
+    m = route(x, mask, pp)
+    names = ["x", "w_gifo_x", "bias", "w_gifo_m", *PH_KEYS]
+    grads = torch.autograd.grad((m.float() * w).sum(),
+                                [x] + [pp[k] for k in names[1:]])
+    g = dict(zip(names, grads))
+    g["peepholes"] = torch.stack([g.pop(k) for k in PH_KEYS])
+    return m.detach(), g
+
+
+def scan_step_gates(inp, m, c):
+    """The gates of kernel 4's plain step (lstm_scan_fwd_ref) at every
+    step at once, from the given m and c carries one step back (zero at
+    t=0) instead of the plain version's own trajectory."""
+    import torch
+    from eesen_tpu_torch.ops.lstm_v1_cuda import _shift
+
+    bf, f32 = torch.bfloat16, torch.float32
+    h = inp["w_m"].shape[0]
+    ph = inp["ph"]
+    m_prev, c_prev = _shift(m), _shift(c)
+    gifo = inp["xw"] + torch.matmul(m_prev.to(bf).to(f32),
+                                    inp["w_m"].to(f32))
+    g = torch.tanh(gifo[..., :h])
+    i = torch.sigmoid(gifo[..., h:2 * h] + c_prev * ph[0])
+    f = torch.sigmoid(gifo[..., 2 * h:3 * h] + c_prev * ph[1])
+    c_raw = f * c_prev + i * g
+    o = torch.sigmoid(gifo[..., 3 * h:] + c_raw * ph[2])
+    return torch.cat([g, i, f, o], dim=-1).to(bf)
+
+
+def phase_lstm_v1(dev, state):
+    """Kernels 4 and 5 against their plain versions, the v1 route against
+    the fused route, and the route choice at H=1152."""
+    import torch
+    from eesen_tpu_torch.models import bilstm
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    out = {}
+    # (i) kernel 4 vs its plain version
+    inp = scan_inputs(dev, SEED + 21)
+    got = lstm_v1_cuda.lstm_scan_fwd(**inp)
+    ref = lstm_v1_cuda.lstm_scan_fwd_ref(**inp)
+    fwd_err = {}
+    for name, g, r in zip(("m", "c", "c_raw"), got, ref):
+        fwd_err[name] = _close(f"lstm_scan_fwd {name}", g, r, LSTM_RTOL,
+                               LSTM_ATOL)
+    # the gates: over 768 steps the two f32 trajectories drift apart by
+    # bf16 flips of the recurrent operand (m, c within the lstm
+    # tolerance), which moves a small gate by a few bf16 steps; so each
+    # step's gates are held elementwise against the plain step from the
+    # kernel's own carries, and the free-running ones in relative L2
+    gates_tf = scan_step_gates(inp, got[0], got[1])
+    fwd_err["gates"] = _close("lstm_scan_fwd gates", got[3], gates_tf,
+                              GATES_RTOL, GATES_ATOL)
+    fwd_err["gates_free_running"] = float(
+        (got[3].float() - ref[3].float()).abs().max())
+    gates_l2 = _rel_l2(got[3], ref[3])
+    if gates_l2 > BWD_REL_L2:
+        raise AssertionError(f"lstm_scan_fwd gates: relative L2 {gates_l2}")
+    del ref, gates_tf
+    # (ii) kernel 5 vs its plain version on kernel 4's residuals
+    m, c, c_raw, gates = got
+    gm = torch.from_numpy(np.random.default_rng(SEED + 22).standard_normal(
+        m.shape).astype(np.float32)).to(dev)
+    res = dict(mask=inp["mask"], gates=gates, c_raw=c_raw, c=c, gm=gm,
+               w_m=inp["w_m"], ph=inp["ph"])
+    dxw = lstm_v1_cuda.lstm_scan_bwd(**res)
+    dxw_ref = lstm_v1_cuda.lstm_scan_bwd_ref(**res)
+    bwd_err = _close("lstm_scan_bwd dxw", dxw, dxw_ref, *BWD_DX_TOL)
+    bwd_l2 = _rel_l2(dxw, dxw_ref)
+    if bwd_l2 > BWD_REL_L2:
+        raise AssertionError(f"lstm_scan_bwd dxw: relative L2 {bwd_l2}")
+    out["kernels"] = {"shape": "B=128 T=768 H=640", "fwd_max_abs_err": fwd_err,
+                      "gates_rel_l2": gates_l2,
+                      "bwd_max_abs_err": bwd_err, "bwd_rel_l2": bwd_l2,
+                      "fwd_tol": {"m_c_craw": (LSTM_RTOL, LSTM_ATOL),
+                                  "gates": (GATES_RTOL, GATES_ATOL)},
+                      "bwd_tol": BWD_DX_TOL, "rel_l2_tol": BWD_REL_L2}
+    state["v1_err"] = {"fwd": max(v for k, v in fwd_err.items()
+                                  if k != "gates_free_running"),
+                       "bwd": bwd_err}
+    del got, res, dxw, dxw_ref, m, c, c_raw, gates, gm, inp
+    # (iii) the two routes on the card, the same inputs and weights
+    x, mask, p, w = route_inputs(dev, SEED + 23)
+    m_f, g_f = route_grads(fused_route, x, mask, p, w)
+    m_v, g_v = route_grads(v1_route, x, mask, p, w)
+    route = {"m_max_abs_err": _close("v1 vs fused m", m_v, m_f, LSTM_RTOL,
+                                     LSTM_ATOL),
+             "grad_rel_l2": {k: _rel_l2(g_v[k], g_f[k]) for k in g_f}}
+    bad = {k: v for k, v in route["grad_rel_l2"].items() if v > BWD_REL_L2}
+    if bad:
+        raise AssertionError(f"v1 vs fused gradients: {bad}")
+    out["route_vs_fused"] = {"shape": "B=128 T=768 D=1280 H=640", **route}
+    del x, mask, p, w, m_f, g_f, m_v, g_v
+    torch.cuda.empty_cache()
+    # (iv) the route choice: a direction kernels 1 and 3 cannot take
+    cfg = bilstm.BiLstmConfig(input_dim=V1_H, cell_dim=V1_H)
+    p = direction_params(V1_H, V1_H, SEED + 24, "cpu")
+    lens = torch.tensor((64, 61, 50, 43, 33, 20, 9, 0))
+    mask = (torch.arange(64)[:, None] < lens[None, :]).float()
+    x = torch.from_numpy(np.random.default_rng(SEED + 24).uniform(
+        -1, 1, (64, 8, V1_H)).astype(np.float32))
+    runs = []                           # the card's run, then the CPU's
+    for where in (dev, torch.device("cpu")):
+        pp = {k: v.to(where).requires_grad_() for k, v in p.items()}
+        reset_counters()
+        m = bilstm._direction_scan(pp, x.to(where), mask.to(where), cfg)
+        grads = torch.autograd.grad(m.float().sum(), list(pp.values()))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            state["v1_launches"] = counters()
+        runs.append((m.detach().float().cpu(), [g.cpu() for g in grads]))
+    launched = state["v1_launches"]
+    want = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_scan_fwd": 1,
+            "lstm_scan_bwd": 1}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"H={V1_H} direction launched {launched}")
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    m_err = _close("H=1152 card vs cpu m", m_card, m_cpu, LSTM_RTOL,
+                   LSTM_ATOL)
+    g_l2 = {k: _rel_l2(g, c) for k, g, c in zip(p, g_card, g_cpu)}
+    if max(g_l2.values()) > BWD_REL_L2:
+        raise AssertionError(f"H={V1_H} card vs cpu gradients {g_l2}")
+    out["route_choice"] = {"shape": f"B=8 T=64 D={V1_H} H={V1_H}",
+                           "launches": launched, "m_max_abs_err_vs_cpu": m_err,
+                           "grad_rel_l2_vs_cpu": g_l2}
+    return out
+
+
+def libri_config(dropout: bool):
+    """The LibriSpeech char recipe's model (recipes/config.py:152-170):
+    4 x 640 over 360-d input, 30 targets (blank + 29 characters), with the
+    recipe's dropout when `dropout`."""
+    from eesen_tpu_torch.models.model import AcousticModelConfig
+
+    drop = dict(forward_dropout=0.2, recurrent_dropout=0.2,
+                forward_step_dropout=False, recurrent_step_dropout=False,
+                recurrent_dropout_mode="no_mem_loss", twiddle=True)
+    return AcousticModelConfig(input_dim=LIBRI_D, cell_dim=LIBRI_H,
+                               num_layers=4, num_targets=LIBRI_V,
+                               **(drop if dropout else {}))
+
+
+def libri_batch(dev, b: int):
+    """b rows at T=768 with the training lengths (row 7 a padded row),
+    normal 360-d features, characters 1..29, min(200, frames/3) labels."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 31)
+    lens = train_lengths()
+    lab_l = np.minimum(LIBRI_L, lens // 3)
+    feats = rng.standard_normal((TRAIN_B, TRAIN_T, LIBRI_D)).astype(
+        np.float32)
+    labels = rng.integers(1, LIBRI_V, (TRAIN_B, LIBRI_L))
+    for i in range(TRAIN_B):
+        feats[i, lens[i]:] = 0.0
+        labels[i, lab_l[i]:] = 0
+    batch = {"feats": feats, "feat_lengths": lens, "labels": labels,
+             "label_lengths": lab_l}
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:b])).to(dev)
+            for k, v in batch.items()}
+
+
+def phase_libri(dev, state):
+    """The LibriSpeech char 4 x 640 model on the card: (i) serve, (ii)
+    train without dropout, (iii) train with the recipe's dropout."""
+    import dataclasses
+
+    import torch
+    from eesen_tpu_torch.models.model import init_model
+    from eesen_tpu_torch.models.priors import compute_log_priors
+    from eesen_tpu_torch.recipes.run import posteriors
+    from eesen_tpu_torch.training.optim import OptimizerConfig
+    from eesen_tpu_torch.training.trainer import (
+        create_train_state, make_train_step,
+    )
+
+    out = {}
+    # (i) serve B=8, T=512 through kernel 1 at H=640
+    cfg = libri_config(dropout=True)
+    params = init_model(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    rng = np.random.default_rng(SEED + 32)
+    arr = np.zeros((B, T_MAX, LIBRI_D), np.float32)
+    for i, n in enumerate(LENGTHS):
+        arr[i, :n] = rng.standard_normal((n, LIBRI_D))
+    lens = np.asarray(LENGTHS)
+    log_priors = compute_log_priors(
+        rng.integers(1, 1000, LIBRI_V).astype(np.float64))
+    reset_counters()
+    t0 = time.perf_counter()
+    lp = posteriors(params, cfg, arr, lens, log_priors, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counters()
+    state["libri_serve_launches"] = launched
+    if launched["lstm_fwd"] != 8 or launched["lstm_scan_fwd"] != 0:
+        raise AssertionError(f"libri serve launched {launched}")
+    lp_cpu = posteriors(_to_cpu(params), cfg, arr, lens, log_priors,
+                        device="cpu")
+    valid = torch.from_numpy(np.arange(T_MAX)[None, :] < lens[:, None])
+    lp_err = float((lp.cpu() - lp_cpu).abs()[valid].max())
+    if not lp_err <= LP_ATOL:
+        raise AssertionError(f"libri log-posteriors differ by {lp_err}")
+    out["serve"] = {"batch": B, "frames": T_MAX, "wall_s": wall,
+                    "launches": launched, "lp_max_abs_err_vs_cpu": lp_err,
+                    "lp_atol": LP_ATOL}
+    del params, lp, lp_cpu
+    # (ii) train without dropout, B=128, T=768, L=200 (S=401)
+    opt = OptimizerConfig(algorithm="sgd", momentum=0.9, max_grad=50.0)
+    cfg_nd = libri_config(dropout=False)
+    st, tx = create_train_state(torch.Generator().manual_seed(SEED), cfg_nd,
+                                opt, device=dev)
+    step = make_train_step(cfg_nd, tx)
+    batch = libri_batch(dev, TRAIN_B)
+    st, _ = step(st, batch, None, LEARN_RATE)          # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(LIBRI_STEPS):
+        st, m = step(st, batch, None, LEARN_RATE)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in counters().items() if k != "dedup_prune"}
+    state["libri_train_launches"] = launched
+    per_step = {k: v / LIBRI_STEPS for k, v in launched.items()}
+    losses = [float(v) for v in losses]
+    want = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
+            "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
+    if per_step != want or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"libri launches per step {per_step}, "
+                             f"losses {losses}")
+    s_step = wall / LIBRI_STEPS
+    holder = {"st": st}
+
+    def one_step():
+        holder["st"], _ = step(holder["st"], batch, None, LEARN_RATE)
+
+    out["train"] = {"batch": TRAIN_B, "frames": TRAIN_T, "labels": LIBRI_L,
+                    "ctc_states": 2 * LIBRI_L + 1, "steps": LIBRI_STEPS,
+                    "losses": losses, "launches_per_step": per_step,
+                    "s_per_step": s_step,
+                    "audio_s_per_s": TRAIN_B * TRAIN_T * LIBRI_FRAME_S / s_step,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "profile": _profile(one_step)}
+    del st, tx, step, holder
+    # (iii) the recipe's dropout: 8 rows card vs CPU with the same masks,
+    # then the recipe's num_sequence rows on the card
+    cfg_d = libri_config(dropout=True)
+    st, tx = create_train_state(torch.Generator().manual_seed(SEED), cfg_d,
+                                opt, device=dev)
+    step = make_train_step(cfg_d, tx)
+    reset_counters()
+    check = card_vs_cpu_step(step, st, {k: v[:8] for k, v in batch.items()},
+                             gen_seed=SEED + 33)
+    check["launches"] = counters()
+    b20 = {k: v[:LIBRI_DROP_B] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    _, m = step(st, b20, torch.Generator().manual_seed(SEED + 34),
+                LEARN_RATE)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counters()
+    state["libri_dropout_launches"] = launched
+    want = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_scan_fwd": 0,
+            "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
+    for name, got in (("8-row", check["launches"]), ("B=20", launched)):
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"libri dropout {name} step launched {got}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"libri dropout step loss {loss}")
+    out["dropout"] = {"cpu_check": check, "batch": LIBRI_DROP_B,
+                      "frames": TRAIN_T, "loss": loss, "seconds": seconds,
+                      "launches": launched,
+                      "audio_s_per_s":
+                          LIBRI_DROP_B * TRAIN_T * LIBRI_FRAME_S / seconds,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def phase_train(dev, state):
+    import torch
+    from eesen_tpu_torch.training.trainer import make_train_step
+
+    cfg, st, tx, batch = train_setup(dev)
+    step = make_train_step(cfg, tx)
+    # (i) 8 rows, card vs CPU, from the same parameters and a zero state
+    cpu_check = card_vs_cpu_step(step, st, {k: v[:8] for k, v in
+                                            batch.items()})
     # (ii) chained full-width steps, counters zeroed just before
     st, m = step(st, batch, None, LEARN_RATE)          # warm the allocator
     torch.cuda.synchronize()
@@ -644,7 +1097,8 @@ def phase_train(dev, state):
     state["train_launches"] = launches
     losses = [float(x) for x in losses]
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    want = {"lstm_fwd": 8, "lstm_bwd": 8, "ctc_alpha": 1, "ctc_beta": 1}
+    want = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
+            "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
     if per_step != want or not np.all(np.isfinite(losses)):
         raise AssertionError(f"launches per step {per_step}, losses {losses}")
     s_step = wall / TRAIN_STEPS
@@ -654,13 +1108,8 @@ def phase_train(dev, state):
     def one_step():
         holder["st"], _ = step(holder["st"], batch, None, LEARN_RATE)
 
-    return {"cpu_check": {"rows": 8, "loss_card": loss_c, "loss_cpu": loss_h,
-                          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
-                          "grad_rel_err_max": grad_err[worst],
-                          "grad_rel_err_worst": worst,
-                          "grad_rtol": TRAIN_GRAD_RTOL, "seconds": cpu_s},
-            "batch": TRAIN_B, "frames": TRAIN_T, "labels": TRAIN_L,
-            "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+    return {"cpu_check": cpu_check, "batch": TRAIN_B, "frames": TRAIN_T,
+            "labels": TRAIN_L, "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
             "launches_per_step": per_step, "s_per_step": s_step,
             "audio_s_per_s": TRAIN_B * TRAIN_T * 0.010 / s_step,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -730,6 +1179,87 @@ def phase_timing(dev):
             bound_ms=dedup_bound_ms(m),
         )
     out.update(timing_train_shapes(dev))
+    out.update(timing_libri(dev))
+    return out
+
+
+def scan_bound(inp, outs, valid_steps: int):
+    """Kernel 4 or 5: its inputs and outputs moved once at the memory
+    rate (36*H bytes a row-step), or 2*sum(len)*H*4H FLOP (the recurrent
+    product over the valid steps) at the bf16 rate, whichever is longer.
+    Returns (ms, "operations" or "bytes")."""
+    h = inp["w_m"].shape[0]
+    t_ops = 2.0 * valid_steps * h * 4 * h / BF16_FLOPS
+    t_bytes = (_nbytes(inp.values()) + _nbytes(outs)) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def timing_libri(dev):
+    """At the LibriSpeech width (H=640): kernels 4 and 5 at B=128,
+    T=768; kernels 1 and 3 per direction-layer at D in {360, 1280},
+    B=128, T=768 (kernel 1 with residuals), and kernel 1 serving B=8,
+    T=512; then the two routes, forward + backward through autograd, per
+    direction-layer at D=1280 (recorded only: they do not decide the
+    route)."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda, lstm_v1_cuda
+
+    valid = int(train_lengths().sum())
+    out = {"lstm_scan_fwd": {}, "lstm_scan_bwd": {}, "lstm_fwd_h640": {},
+           "lstm_bwd_h640": {}, "routes_h640": {}}
+    inp = scan_inputs(dev, SEED + 21)
+    res = lstm_v1_cuda.lstm_scan_fwd(**inp)
+    bound, by = scan_bound(inp, res, valid)
+    out["lstm_scan_fwd"]["H640"] = dict(
+        ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_fwd(**inp), 3),
+        plain_ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_fwd_ref(**inp), 1),
+        bound_ms=bound, bound_by=by)
+    m, c, c_raw, gates = res
+    bwd = dict(mask=inp["mask"], gates=gates, c_raw=c_raw, c=c,
+               gm=torch.randn_like(m), w_m=inp["w_m"], ph=inp["ph"])
+    bound, by = scan_bound(bwd, [lstm_v1_cuda.lstm_scan_bwd(**bwd)], valid)
+    out["lstm_scan_bwd"]["H640"] = dict(
+        ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_bwd(**bwd), 3),
+        plain_ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_bwd_ref(**bwd), 1),
+        bound_ms=bound, bound_by=by)
+    del inp, res, bwd, m, c, c_raw, gates
+    for d in (LIBRI_D, 2 * LIBRI_H):
+        fwd, bwd = train_lstm_inputs(d, LIBRI_H, dev, SEED + d + 1, True)
+        res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
+                                       with_residuals=True)
+        bound, by = lstm_bound(fwd, res, valid)
+        out["lstm_fwd_h640"][f"train_D{d}"] = dict(
+            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
+                **fwd, state_bf16=True, with_residuals=True), 2),
+            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
+                **fwd, state_bf16=True, with_residuals=True), 1),
+            bound_ms=bound, bound_by=by)
+        grads = lstm_cuda.lstm_direction_bwd(**bwd)
+        bound, by = lstm_bound(bwd, grads, valid, passes=2)
+        out["lstm_bwd_h640"][f"D{d}"] = dict(
+            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), 2),
+            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd_ref(
+                **bwd), 1),
+            bound_ms=bound, bound_by=by)
+        del fwd, bwd, res, grads
+        inp = lstm_inputs(d, LIBRI_H, dev, SEED + d)
+        bound, by = lstm_bound(inp, [lstm_cuda.lstm_direction(
+            **inp, state_bf16=True)], sum(LENGTHS))
+        out["lstm_fwd_h640"][f"serve_D{d}"] = dict(
+            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
+                **inp, state_bf16=True), 3),
+            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
+                **inp, state_bf16=True), 1),
+            bound_ms=bound, bound_by=by)
+    torch.cuda.empty_cache()
+    x, mask, p, w = route_inputs(dev, SEED + 23)
+    routes = (("fused", lambda a, b, c: fused_route(a, b, c, True)),
+              ("v1", v1_route))
+    for name, route in routes:
+        out["routes_h640"][name] = {"fwd_bwd_ms": _cuda_ms(
+            lambda: route_grads(route, x, mask, p, w), 2),
+            "shape": "B=128 T=768 D=1280 H=640"}
     return out
 
 
@@ -886,6 +1416,20 @@ def kernels_report(state, timing):
     bt = timing["lstm_bwd"]["D640"]
     tl = state["train_launches"]
     train_path = f"train ({TRAIN_STEPS} steps)"
+    h640 = {k: timing[f"{k}_h640"] for k in ("lstm_fwd", "lstm_bwd")}
+    scan = {k: timing[f"lstm_scan_{k}"]["H640"] for k in ("fwd", "bwd")}
+    v1_path = f"v1 route: one H={V1_H} direction, forward + backward"
+    scan_rows = [
+        {"name": f"lstm_scan_{k}", "route": "cuda",
+         "source": f"eesen_tpu_torch/csrc/lstm_scan_{k}.cu",
+         "replaces": f"eesen_tpu/ops/lstm_pallas.py:{line}",
+         "launches": state["v1_launches"][f"lstm_scan_{k}"],
+         "path": v1_path, "max_abs_err": state["v1_err"][k],
+         "ms": scan[k]["ms"], "plain_ms": scan[k]["plain_ms"],
+         "bound_ms": scan[k]["bound_ms"], "bound_by": scan[k]["bound_by"],
+         "library_ms": None, "shape": "B=128 T=768 H=640"}
+        for k, line in (("fwd", 50), ("bwd", 94))
+    ]
     ctc = [
         {"name": f"ctc_{w}", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/ctc_alpha_beta.cu",
@@ -915,7 +1459,10 @@ def kernels_report(state, timing):
          "train_shape_max_abs_err": max(
              state["lstm_bwd"]["fwd_max_abs_err"].values()),
          "train_shape_ms": ltt["ms"], "train_shape_plain_ms": ltt["plain_ms"],
-         "train_shape_bound_ms": ltt["bound_ms"]},
+         "train_shape_bound_ms": ltt["bound_ms"],
+         "libri_serve_launches": state["libri_serve_launches"]["lstm_fwd"],
+         "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
+         "h640": h640["lstm_fwd"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "eesen_tpu/ops/lstm_pallas.py:379",
@@ -924,7 +1471,10 @@ def kernels_report(state, timing):
          "ms": bt["ms"], "plain_ms": bt["plain_ms"],
          "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
          "library_ms": None,
-         "shape": "B=128 T=768 D=640 H=320 bf16, state_bf16"},
+         "shape": "B=128 T=768 D=640 H=320 bf16, state_bf16",
+         "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
+         "h640": h640["lstm_bwd"]},
+        *scan_rows,
         *ctc,
         {"name": "dedup_prune", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/dedup_prune.cu",
@@ -984,6 +1534,8 @@ def run(dev) -> bool:
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)
         phase("train", phase_train, dev, state)
+        phase("lstm_v1", phase_lstm_v1, dev, state)
+        phase("libri", phase_libri, dev, state)
         timing = phase("timing", phase_timing, dev)
         phase("profile", phase_profile, dev, graphs, state)
         if ok and timing is not None:

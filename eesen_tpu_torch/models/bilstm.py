@@ -16,28 +16,45 @@ masks:
   time flip (padding frames first: the mask keeps the zero state through
   the padded prefix).
 
-On a CUDA tensor `_direction_scan` runs the fused kernel (ops/lstm_cuda.py,
-csrc/lstm_fwd.cu): input projection and recurrence in one launch, m
-streamed in bf16 when `state_bf16`.  On a CPU tensor it runs the plain
-recurrence, which follows the JAX package's XLA scan branch: products in
-`compute_dtype`, f32 state, `state_bf16` ignored.  Gradients come from
-`lstm_cuda.LstmDirection`: the backward kernel csrc/lstm_bwd.cu on the
-card, its plain version on the CPU.
+Which route a direction takes (`_direction_scan`):
 
-`train=True` runs the layer as the JAX package trains it without dropout
-(the WSJ recipe uses none).  Forward dropout, recurrent dropout and
-twiddle raise NotImplementedError: the JAX package runs recurrent dropout
-through its XLA scan, with no kernel, and the port has not taken it yet.
+- with a recurrent-dropout mask (training with `recurrent_dropout > 0`):
+  the plain recurrence in torch ops with autograd, `_dropout_scan`, on
+  the CPU and on the card alike.  It is the branch the JAX package itself
+  takes whenever a mask is given (its XLA scan, bilstm.py:179-233), so
+  on the card it launches no LSTM kernel, as the JAX package launches
+  none there;
+- otherwise on a CUDA tensor, when `lstm_cuda.fused_launch` takes the
+  shape: the fused kernels (ops/lstm_cuda.py, csrc/lstm_fwd.cu forward,
+  csrc/lstm_bwd.cu backward through `LstmDirection`), input projection
+  and recurrence in one launch, m streamed in bf16 when `state_bf16`;
+- otherwise on a CUDA tensor (H > 1024, or more shared memory than a
+  block has): the v1 route (ops/lstm_v1_cuda.py `_v1_direction_tm`,
+  kernels csrc/lstm_scan_fwd.cu and csrc/lstm_scan_bwd.cu), in bf16
+  whatever `compute_dtype`, m in f32, as lstm_pallas.py:843-849 routes;
+- on a CPU tensor: the plain versions of the fused kernels, which follow
+  the JAX package's XLA scan branch: products in `compute_dtype`, f32
+  state, `state_bf16` ignored.
+
+`train=True` applies dropout as the JAX package does
+(bilstm.py:236-317): forward dropout on the layer output, recurrent
+dropout on the cell update in the `no_mem_loss` or `rnndrop` mode, each
+with per-step or per-sequence masks, and twiddle (recurrent dropout on
+one direction only, chosen per layer).  Masks are Bernoulli(keep)/keep,
+drawn from the `rng` torch.Generator on the CPU and moved to the
+device, so one seed gives the same masks on the CPU and on the card.
+Forward dropout alone keeps the kernels.  Streaming (`carry_in` /
+`return_carry`) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from eesen_tpu_torch.ops import lstm_cuda
+from eesen_tpu_torch.ops import lstm_cuda, lstm_v1_cuda
 
 Params = Dict[str, torch.Tensor]
 
@@ -103,15 +120,92 @@ def init_bilstm_layer(
     }
 
 
+def split_generator(gen: torch.Generator) -> torch.Generator:
+    """A new CPU generator seeded by `gen`'s next draw: the port's
+    counterpart of jax.random.split, one stream per layer or step."""
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=gen))
+    return torch.Generator().manual_seed(seed)
+
+
+def _dropout_mask(
+    gen: torch.Generator, rate: float, per_step: bool, b: int, t: int,
+    d: int, device,
+) -> torch.Tensor:
+    """Bernoulli(keep) mask scaled by 1/keep, time-major [T or 1, B, D]
+    (bilstm.py:236-246): per-sequence masks have a length-1 time axis, one
+    draw per utterance broadcast over time.  Drawn on the CPU from `gen`,
+    then moved to `device`."""
+    keep = 1.0 - rate
+    shape = (t, b, d) if per_step else (1, b, d)
+    m = torch.rand(shape, generator=gen) < keep
+    return (m.to(torch.float32) / keep).to(device)
+
+
+def _dropout_scan(
+    p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: BiLstmConfig,
+    rec_drop_mask: torch.Tensor,
+) -> torch.Tensor:
+    """The recurrence with a recurrent-dropout mask [T or 1, B, H], in
+    plain torch ops with autograd (bilstm.py:179-233): products of
+    `compute_dtype` values summed in float32, f32 state.  no_mem_loss
+    masks the candidate, c = f*c_prev + mask*(i*g); rnndrop masks the
+    cell, c = mask*(f*c_prev + i*g).  Returns m [T, B, H] f32, zero at
+    padded steps."""
+    t_max, b, d = x.shape
+    h = cfg.cell_dim
+    cdt, f32 = cfg.compute_dtype, torch.float32
+    xw = torch.matmul(
+        x.to(cdt).to(f32), p["w_gifo_x"].reshape(d, 4 * h).to(cdt).to(f32)
+    ) + p["bias"].reshape(4 * h)                               # [T, B, 4H]
+    w_m = p["w_gifo_m"].reshape(h, 4 * h).to(cdt).to(f32)
+    ph_i, ph_f, ph_o = p["phole_i_c"], p["phole_f_c"], p["phole_o_c"]
+    rnndrop = cfg.recurrent_dropout_mode == "rnndrop"
+    c = m_carry = torch.zeros((b, h), dtype=f32, device=x.device)
+    ms = []
+    for t in range(t_max):
+        rd = rec_drop_mask[t if rec_drop_mask.shape[0] > 1 else 0]
+        gifo = xw[t] + torch.matmul(m_carry.to(cdt).to(f32), w_m)
+        g = torch.tanh(gifo[:, 0 * h:1 * h])
+        i = torch.sigmoid(gifo[:, 1 * h:2 * h] + c * ph_i)
+        f = torch.sigmoid(gifo[:, 2 * h:3 * h] + c * ph_f)
+        cand = i * g
+        if not rnndrop:
+            cand = cand * rd
+        c_new = f * c + cand
+        if rnndrop:
+            c_new = c_new * rd
+        o = torch.sigmoid(gifo[:, 3 * h:4 * h] + c_new * ph_o)
+        mt = mask[t][:, None]
+        m = o * torch.tanh(c_new) * mt   # padded steps emit zeros
+        c = c_new * mt + c * (1.0 - mt)
+        m_carry = m + m_carry * (1.0 - mt)
+        ms.append(m)
+    if not ms:
+        return torch.zeros_like(xw[..., :h])
+    return torch.stack(ms)
+
+
 def _direction_scan(
     p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: BiLstmConfig,
+    rec_drop_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One direction's recurrence, time-major: x [T, B, D] (already
-    time-flipped for the backward direction), mask [T, B] float 0/1;
-    returns m [T, B, H] (f32, or bf16 from the card under state_bf16),
-    zero at padded steps.  The weights go in as float32: the wrapper casts
-    them to the compute dtype, and their gradients stay float32."""
-    d, h = cfg.input_dim, cfg.cell_dim
+    time-flipped for the backward direction), mask [T, B] float 0/1,
+    rec_drop_mask [T or 1, B, H] or None; returns m [T, B, H] (f32, or
+    bf16 from the fused kernel under state_bf16), zero at padded steps.
+    The route is chosen as the module docstring says.  The weights go in
+    as float32: the wrappers cast them to the compute dtype, and their
+    gradients stay float32."""
+    if rec_drop_mask is not None:
+        return _dropout_scan(p, x, mask, cfg, rec_drop_mask)
+    t_max, b, d = x.shape
+    h = cfg.cell_dim
+    if x.is_cuda and lstm_cuda.fused_launch(b, d, h) is None:
+        m = lstm_v1_cuda._v1_direction_tm(
+            x, mask, p["w_gifo_x"], p["bias"], p["w_gifo_m"],
+            p["phole_i_c"], p["phole_f_c"], p["phole_o_c"],
+        )
+        return m * mask[:, :, None]
     cdt = cfg.compute_dtype
     ph = torch.stack([p["phole_i_c"], p["phole_f_c"], p["phole_o_c"]])
     m = lstm_cuda.lstm_direction(
@@ -134,27 +228,46 @@ def bilstm_layer_tm(
     cfg: BiLstmConfig,
     *,
     train: bool = False,
+    rng: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Apply one BiLSTM layer, time-major: x [T, B, D] -> [T, B, 2H]
-    ([T, B, H] when unidirectional), zero at padded steps.  `train` only
-    matters for dropout and twiddle, which are not ported yet."""
-    if train and (cfg.forward_dropout > 0.0 or cfg.recurrent_dropout > 0.0
-                  or cfg.twiddle):
-        raise NotImplementedError(
-            "training with dropout or twiddle is not ported yet"
-        )
-    t_max = x.shape[0]
+    ([T, B, H] when unidirectional), zero at padded steps.  With `train`,
+    dropout and twiddle as configured, their masks drawn from `rng` (a CPU
+    torch.Generator) in the JAX package's order: recurrent fw, recurrent
+    bw, the twiddle pick, then the forward-dropout mask."""
+    t_max, b = x.shape[:2]
     t_iota = torch.arange(t_max, device=x.device)[:, None]
     mask = (t_iota < lengths.to(x.device)[None, :]).to(torch.float32)
 
-    m_fw = _direction_scan(params["fw"], x, mask, cfg)
+    rd_fw = rd_bw = None
+    if train and (cfg.recurrent_dropout > 0.0 or cfg.forward_dropout > 0.0):
+        if rng is None:
+            raise ValueError("dropout needs an rng (a torch.Generator)")
+    if train and cfg.recurrent_dropout > 0.0:
+        draw = lambda: _dropout_mask(
+            rng, cfg.recurrent_dropout, cfg.recurrent_step_dropout, b,
+            t_max, cfg.cell_dim, x.device)
+        rd_fw, rd_bw = draw(), draw()
+        if cfg.twiddle and cfg.bidirectional:
+            # recurrent dropout on exactly one direction, chosen at random
+            # (bilstm-parallel-layer.h:385-405); the other takes a ones
+            # mask, so both run the dropout scan, as in JAX
+            if bool(torch.rand((), generator=rng) < 0.5):
+                rd_bw = torch.ones_like(rd_bw)
+            else:
+                rd_fw = torch.ones_like(rd_fw)
+
+    m_fw = _direction_scan(params["fw"], x, mask, cfg, rd_fw)
     if cfg.bidirectional:
         m_bw_rev = _direction_scan(
             params["bw"], torch.flip(x, dims=(0,)),
-            torch.flip(mask, dims=(0,)), cfg,
+            torch.flip(mask, dims=(0,)), cfg, rd_bw,
         )
         y = torch.cat([m_fw, torch.flip(m_bw_rev, dims=(0,))], dim=-1)
     else:
         y = m_fw
+    if train and cfg.forward_dropout > 0.0:
+        y = y * _dropout_mask(rng, cfg.forward_dropout,
+                              cfg.forward_step_dropout, b, t_max,
+                              cfg.output_dim, x.device)
     return y * mask[:, :, None]
-

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from eesen_tpu_torch.models.bilstm import (
-    BiLstmConfig, bilstm_layer_tm, init_bilstm_layer,
+    BiLstmConfig, bilstm_layer_tm, init_bilstm_layer, split_generator,
 )
 
 Params = Dict[str, Any]
@@ -142,13 +142,15 @@ def apply_model(
     package does.  The output affine is a float32 torch.matmul of the
     compute-dtype operands (TF32 is off).  Gradients flow to `params`
     when they require grad (the LSTM through its backward kernel).
-    `rng` would seed dropout; it is unused while dropout raises
-    NotImplementedError (models/bilstm.py)."""
-    del rng
+    With `train`, dropout draws its masks from `rng` (a CPU
+    torch.Generator, needed when the config has dropout), split into one
+    generator per layer as the JAX package splits its key."""
     x = feats.transpose(0, 1)                             # [T, B, D]
     for i in range(cfg.num_layers):
+        lrng = None if rng is None else split_generator(rng)
         x = bilstm_layer_tm(
             params["layers"][i], x, lengths, cfg.layer_cfg(i), train=train,
+            rng=lrng,
         )
     cdt = cfg.compute_dtype
     f32 = torch.float32

@@ -26,8 +26,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = (
-    "lstm_fwd.cu", "lstm_bwd.cu", "ctc_alpha_beta.cu", "dedup_prune.cu",
-    "cuda_errors.cu",
+    "lstm_fwd.cu", "lstm_bwd.cu", "lstm_scan_fwd.cu", "lstm_scan_bwd.cu",
+    "ctc_alpha_beta.cu", "dedup_prune.cu", "cuda_errors.cu",
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libeesen_kernels.so")
 NVCC_FLAGS = (
@@ -129,6 +129,11 @@ def load() -> ctypes.CDLL:
         lib.lstm_bwd.restype = _I
         lib.lstm_bwd_smem_bytes.argtypes = [_I] * 3
         lib.lstm_bwd_smem_bytes.restype = ctypes.c_longlong
+        for name in ("lstm_scan_fwd", "lstm_scan_bwd"):
+            getattr(lib, name).argtypes = [_P] * 8 + [_I] * 5 + [_P]
+            getattr(lib, name).restype = _I
+            getattr(lib, f"{name}_smem_bytes").argtypes = [_I] * 2
+            getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
         lib.ctc_alpha.argtypes = [_P] * 4 + [_I] * 3 + [_P]
         lib.ctc_alpha.restype = _I
         lib.ctc_beta.argtypes = [_P] * 5 + [_I] * 3 + [_P]

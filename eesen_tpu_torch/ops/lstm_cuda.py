@@ -1,6 +1,7 @@
 """One LSTM direction, input projection and recurrence fused: the CUDA
 kernels `csrc/lstm_fwd.cu` (forward) and `csrc/lstm_bwd.cu` (backward),
-their plain PyTorch versions, and the autograd Function over the pair.
+their plain PyTorch versions, the autograd Function over the pair, and
+the route choice `fused_launch`.
 
 Replaces the TPU kernels `_fused_fwd_kernel` and `_fused_bwd_kernel`
 (eesen_tpu/ops/lstm_pallas.py:323 and :379, entry
@@ -17,11 +18,25 @@ CARRY [T, B, H]: at a padded step it repeats the previous m, so callers
 multiply by the mask to get the layer output.  When autograd needs a
 gradient it returns through `LstmDirection`, whose forward keeps the
 residuals (c carry, gates) and whose backward is the backward kernel.
+
+Which route a direction takes on the card: `fused_launch(B, D, H)` gives
+the launch parameters of kernels 1 and 3, or None where either cannot
+take the shape (more than 1024 threads, i.e. H > 1024, or more shared
+memory than a block has); then models/bilstm.py sends the direction to
+the v1 route (ops/lstm_v1_cuda.py, kernels 4 and 5).  This is the
+counterpart of `fused_block_ts` (lstm_pallas.py:761-777), which asks
+the same question of the TPU's VMEM; speed plays no part in the choice.
+A direct call of these wrappers on a shape `fused_launch` refuses raises.
+Dropout is ported: forward dropout alone keeps this route (the mask
+multiplies the layer output); a direction with a recurrent-dropout mask
+runs neither this route nor the v1 one, but the torch-op recurrence
+`_dropout_scan` of models/bilstm.py, as the JAX package runs its XLA scan
+then.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -93,6 +108,43 @@ def _split(h: int) -> int:
     return max(1, min(4, MAX_THREADS // h))
 
 
+def fwd_smem_bytes(d: int, h: int, rows: int, split: int) -> int:
+    """Shared memory of kernel 1 (csrc/lstm_fwd.cu lstm_fwd_smem_bytes)."""
+    return 4 * (rows * (d + h) + 2 * rows * h + split * rows * 4 * h)
+
+
+def bwd_smem_bytes(h: int, rows: int, split: int) -> int:
+    """Shared memory of kernel 3's recurrence (csrc/lstm_bwd.cu
+    lstm_bwd_smem_bytes)."""
+    return 4 * rows * (13 * h + split * h)
+
+
+class FusedLaunch(NamedTuple):
+    rows_fwd: int      # batch rows per block of kernel 1
+    rows_bwd: int      # batch rows per block of kernel 3's recurrence
+    split: int         # threads that share one hidden unit (split-K)
+
+
+def fused_launch(b: int, d: int, h: int) -> Optional[FusedLaunch]:
+    """Launch parameters of kernels 1 and 3 for a direction of batch b,
+    input width d and cell width h, or None when either kernel cannot take
+    the shape on the card: split*h threads above 1024 (any h > 1024), or
+    more shared memory than a block may use even at one row per block.
+    Host arithmetic only.  B sets the grid, and caps the rows per block."""
+    split = _split(h)
+    if split * h > MAX_THREADS:
+        return None
+    rows = min(ROWS_PER_BLOCK, max(b, 1))
+    rows_fwd = rows
+    while (rows_fwd > 1
+           and fwd_smem_bytes(d, h, rows_fwd, split) > SMEM_LIMIT):
+        rows_fwd //= 2
+    if (fwd_smem_bytes(d, h, rows_fwd, split) > SMEM_LIMIT
+            or bwd_smem_bytes(h, rows, split) > SMEM_LIMIT):
+        return None
+    return FusedLaunch(rows_fwd, rows, split)
+
+
 def _check(what: str, dev: torch.device, expect) -> None:
     """Raise unless every (tensor, shape, dtype) is as expected, contiguous
     and on `dev`."""
@@ -128,17 +180,11 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
         "w_m": (w_m, (h, 4 * h), cdt),
         "ph": (ph, (3, h), torch.float32),
     })
-    split = _split(h)
-    if split * h > MAX_THREADS:
-        raise ValueError(f"lstm_direction: cell_dim {h} > {MAX_THREADS}")
+    launch = fused_launch(b, d, h)
+    if launch is None:
+        raise ValueError(f"lstm_direction: D={d}, H={h} exceed the fused "
+                         f"kernel's threads or shared memory (v1 route)")
     lib = build.load()
-    rb = ROWS_PER_BLOCK
-    while rb > 1 and lib.lstm_fwd_smem_bytes(d, h, rb, split) > SMEM_LIMIT:
-        rb //= 2
-    if lib.lstm_fwd_smem_bytes(d, h, rb, split) > SMEM_LIMIT:
-        raise ValueError(
-            f"lstm_direction: D={d}, H={h} exceed the kernel's shared memory"
-        )
     sdt = torch.bfloat16 if state_bf16 else torch.float32
     m = torch.empty((t_max, b, h), dtype=sdt, device=x.device)
     c = gates = None
@@ -152,7 +198,8 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
             c.data_ptr() if c is not None else None,
             gates.data_ptr() if gates is not None else None,
             t_max, b, d, h, int(cdt == torch.bfloat16), int(state_bf16),
-            rb, split, torch.cuda.current_stream(x.device).cuda_stream,
+            launch.rows_fwd, launch.split,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(err, "lstm_fwd")
         launches += 1
@@ -258,13 +305,11 @@ def lstm_direction_bwd(
         "w_m": (w_m, (h, 4 * h), cdt),
         "ph": (ph, (3, h), torch.float32),
     })
-    split = _split(h)
-    if split * h > MAX_THREADS:
-        raise ValueError(f"lstm_direction_bwd: cell_dim {h} > {MAX_THREADS}")
+    launch = fused_launch(b, d, h)
+    if launch is None:
+        raise ValueError(f"lstm_direction_bwd: D={d}, H={h} exceed the "
+                         f"fused kernels' threads or shared memory (v1 route)")
     lib = build.load()
-    rb = ROWS_PER_BLOCK
-    # 4*RB*(13H + split*H) bytes: ~115 KB at most for split*H <= 1024
-    assert lib.lstm_bwd_smem_bytes(h, rb, split) <= SMEM_LIMIT
     dev = x.device
     f32 = torch.float32
     dx = torch.empty((t_max, b, d), dtype=cdt, device=dev)
@@ -292,8 +337,9 @@ def lstm_direction_bwd(
             dbph.data_ptr(), scratch["dgifo"].data_ptr(),
             scratch["rows"].data_ptr(), scratch["wx"].data_ptr(),
             scratch["wm"].data_ptr(), t_max, b, d, h,
-            int(cdt == torch.bfloat16), int(sdt == torch.bfloat16), rb, split,
-            zx, zm, torch.cuda.current_stream(dev).cuda_stream,
+            int(cdt == torch.bfloat16), int(sdt == torch.bfloat16),
+            launch.rows_bwd, launch.split, zx, zm,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         build.check(err, "lstm_bwd")
         bwd_launches += 1

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from eesen_tpu_torch.models.bilstm import split_generator
 from eesen_tpu_torch.models.model import (
     AcousticModelConfig, apply_model, as_tensor, check_device, init_model,
 )
@@ -108,7 +109,8 @@ def make_train_step(
     """Returns train_step(state, batch, rng, learn_rate, with_argmax=None)
     -> (state, metrics).  `batch` holds tensors on the parameters' device:
     feats [B, T, D] f32, feat_lengths [B], labels [B, L], label_lengths [B].
-    `rng` is accepted for dropout, which is not ported yet.  A call's
+    `rng` (a CPU torch.Generator, or None without dropout) draws the
+    step's dropout masks.  A call's
     `with_argmax` overrides the default given here (eager PyTorch needs no
     second step function for it).  The returned state holds new tensors;
     the old state is left as it was."""
@@ -177,7 +179,9 @@ class TrainerConfig:
 
 class Trainer:
     """Epoch-level driver: newbob LR schedule, CV early stop, checkpointing.
-    Parameters are drawn from torch.Generator().manual_seed(cfg.seed)."""
+    Parameters are drawn from torch.Generator().manual_seed(cfg.seed); each
+    train step gets its own generator for dropout, split from `self.rng`
+    (seeded from cfg.seed too), as the JAX trainer splits its key."""
 
     def __init__(self, cfg: TrainerConfig, device="cuda"):
         self.cfg = cfg
@@ -189,6 +193,7 @@ class Trainer:
         self.train_step = make_train_step(cfg.model, self.tx, loss=cfg.loss)
         self.eval_step = make_eval_step(cfg.model, loss=cfg.loss)
         self.sched = NewbobScheduler(cfg.newbob)
+        self.rng = split_generator(torch.Generator().manual_seed(cfg.seed))
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {
@@ -235,7 +240,8 @@ class Trainer:
                 # the argmax only on TER batches; CE needs none at all
                 want_ter_now = (n + 1) % ter_step == 0
                 self.state, metrics = self.train_step(
-                    self.state, dev_batch, None, learn_rate,
+                    self.state, dev_batch, split_generator(self.rng),
+                    learn_rate,
                     with_argmax=want_ter_now and self.cfg.loss != "ce",
                 )
             else:

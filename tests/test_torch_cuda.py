@@ -15,7 +15,10 @@ from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder.arpa import arpa_to_fst
 from eesen_tpu_torch.decoder.ctc_graph import build_lg, build_tlg, compile_lang
 from eesen_tpu_torch.decoder.graph_compile import compile_graph
-from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
+from eesen_tpu_torch.models import bilstm as tbilstm
+from eesen_tpu_torch.ops import (
+    beam_cuda, build, ctc_cuda, lstm_cuda, lstm_v1_cuda,
+)
 from eesen_tpu_torch.ops.ctc import _ctc_prep, _final_states
 from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
 from eesen_tpu_torch.recipes.lm import estimate_bigram_arpa
@@ -120,6 +123,100 @@ def test_lstm_direction_autograd_on_card(dev):
     for name, g, c in zip(names, *grads):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
                                    msg=name)
+
+
+def scan_args(dev, h, t=13, b=3, seed=3):
+    """Kernel 4's inputs (xw f32, a length-0 row) and a cotangent gm."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy(
+        (sc * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    lens = torch.tensor([t, t - 4, 0], device=dev)
+    mask = (torch.arange(t, device=dev)[:, None] < lens[None]).float()
+    return dict(xw=f(t, b, 4 * h), mask=mask,
+                w_m=f(h, 4 * h, sc=0.05).to(torch.bfloat16),
+                ph=f(3, h, sc=0.3)), f(t, b, h)
+
+
+@pytest.mark.parametrize("h", [40, 1152])
+def test_lstm_scan_kernels_match_plain(dev, h):
+    """Kernel 4 (m, c, c_raw at the JAX bf16 tolerance rtol 2e-2 / atol
+    2e-3; gates, bf16, the same) and kernel 5 on its residuals (dxw at
+    rtol 5e-2 / atol 2e-2, the dx tolerance of the fused gradients), at a
+    width one thread per unit takes and at one above 1024."""
+    args, gm = scan_args(dev, h)
+    before = (lstm_v1_cuda.launches, lstm_v1_cuda.bwd_launches)
+    got = lstm_v1_cuda.lstm_scan_fwd(**args)
+    want = lstm_v1_cuda.lstm_scan_fwd_ref(**args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-3)
+    m, c, c_raw, gates = got
+    res = dict(mask=args["mask"], gates=gates, c_raw=c_raw, c=c, gm=gm,
+               w_m=args["w_m"], ph=args["ph"])
+    dxw = lstm_v1_cuda.lstm_scan_bwd(**res)
+    dxw_ref = lstm_v1_cuda.lstm_scan_bwd_ref(**res)
+    torch.cuda.synchronize()
+    assert (lstm_v1_cuda.launches, lstm_v1_cuda.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dxw.dtype == torch.float32
+    torch.testing.assert_close(dxw, dxw_ref, rtol=5e-2, atol=2e-2)
+    assert torch.all(dxw[:, 2] == 0)
+
+
+def test_smem_formulas_match_the_library(dev):
+    """The host's shared-memory arithmetic (the route choice) is the
+    kernels' own."""
+    lib = build.load()
+    for d, h, rb, s in ((120, 320, 2, 3), (1280, 640, 1, 1), (64, 32, 2, 4)):
+        assert lib.lstm_fwd_smem_bytes(d, h, rb, s) == \
+            lstm_cuda.fwd_smem_bytes(d, h, rb, s)
+        assert lib.lstm_bwd_smem_bytes(h, rb, s) == \
+            lstm_cuda.bwd_smem_bytes(h, rb, s)
+    for h, rb in ((640, 2), (1152, 1)):
+        assert lib.lstm_scan_fwd_smem_bytes(h, rb) == \
+            lstm_v1_cuda.fwd_smem_bytes(h, rb)
+        assert lib.lstm_scan_bwd_smem_bytes(h, rb) == \
+            lstm_v1_cuda.bwd_smem_bytes(h, rb)
+
+
+def test_direction_above_1024_takes_the_v1_route(dev):
+    """H=1152: the fused kernels refuse the shape (a direct call raises),
+    `_direction_scan` runs kernels 4 and 5 instead and matches the CPU
+    plain run (m at rtol 2e-2 / atol 2e-3, gradients within 1e-2
+    relative L2)."""
+    h, d, t, b = 1152, 96, 12, 3
+    cfg = tbilstm.BiLstmConfig(input_dim=d, cell_dim=h)
+    p = tbilstm.init_bilstm_layer(torch.Generator().manual_seed(0), cfg,
+                                  "cpu")["fw"]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (t, b, d)).astype(np.float32))
+    mask = (torch.arange(t)[:, None] < torch.tensor([t, 7, 0])).float()
+    with pytest.raises(ValueError, match="v1 route"):
+        lstm_cuda.lstm_direction(
+            x.to(dev, torch.bfloat16), mask.to(dev),
+            p["w_gifo_x"].reshape(d, 4 * h).to(dev),
+            p["bias"].reshape(-1).to(dev),
+            p["w_gifo_m"].reshape(h, 4 * h).to(dev),
+            torch.stack([p[k] for k in ("phole_i_c", "phole_f_c",
+                                        "phole_o_c")]).to(dev))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        pp = {k: v.to(where).requires_grad_() for k, v in p.items()}
+        before = (lstm_cuda.launches, lstm_v1_cuda.launches,
+                  lstm_v1_cuda.bwd_launches)
+        m = tbilstm._direction_scan(pp, x.to(where), mask.to(where), cfg)
+        grads = torch.autograd.grad(m.float().sum(), list(pp.values()))
+        launched = (lstm_cuda.launches - before[0],
+                    lstm_v1_cuda.launches - before[1],
+                    lstm_v1_cuda.bwd_launches - before[2])
+        out[where.type] = (m.float().cpu(), [g.cpu() for g in grads],
+                           launched)
+    assert out["cuda"][2] == (0, 1, 1) and out["cpu"][2] == (0, 0, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-2,
+                               atol=2e-3)
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - c).norm() / c.norm().clamp_min(1e-30)) < 1e-2
 
 
 def ctc_inputs(dev, b=6, t=40, v=9, l=8, seed=0):

@@ -13,7 +13,7 @@ import torch
 from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder import graph_compile as t_gc
 from eesen_tpu_torch.models import model as tmodel
-from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda
+from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
 from eesen_tpu_torch.recipes import run as trun
 from eesen_tpu_torch.training import optim as toptim
 from eesen_tpu_torch.training import trainer as ttrainer
@@ -119,13 +119,20 @@ def test_wrappers_refuse_other_devices():
             e(3, 2, 2), e(4, 8), e(2, 8), e(3, 2),
         )
     with pytest.raises(ValueError, match="unsupported device"):
+        lstm_v1_cuda.lstm_scan_fwd(e(3, 2, 8), e(3, 2), e(2, 8), e(3, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_v1_cuda.lstm_scan_bwd(e(3, 2), e(3, 2, 8), e(3, 2, 2),
+                                   e(3, 2, 2), e(3, 2, 2), e(2, 8), e(3, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
         ctc_cuda.ctc_alpha_beta(e(2, 3, 5), e(2, 5), e(2, 5),
                                 torch.empty(2, dtype=torch.int32,
                                             device=meta))
 
 
 def counts():
-    return (lstm_cuda.launches, lstm_cuda.bwd_launches, beam_cuda.launches,
+    return (lstm_cuda.launches, lstm_cuda.bwd_launches,
+            lstm_v1_cuda.launches, lstm_v1_cuda.bwd_launches,
+            beam_cuda.launches,
             ctc_cuda.alpha_launches, ctc_cuda.beta_launches)
 
 
@@ -140,6 +147,10 @@ def test_counters_do_not_move_on_cpu():
     )
     m.sum().backward()                    # the backward's plain version
     assert w_x.grad is not None
+    xw = torch.zeros((2, 1, 8), requires_grad=True)
+    lstm_v1_cuda.lstm_scan(xw, torch.ones((2, 1)), torch.zeros((2, 8)),
+                           torch.zeros((3, 2))).sum().backward()
+    assert xw.grad is not None
     ctc_cuda.ctc_alpha_beta(torch.zeros((1, 2, 3)), torch.zeros((1, 3)),
                             torch.zeros((1, 3)), torch.tensor([2]))
     assert counts() == before

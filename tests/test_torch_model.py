@@ -99,20 +99,26 @@ def test_fgate_bias_offsets_the_forget_gate():
 
 
 def test_train_mode_is_not_ported():
-    """train=True runs the stack as the JAX package trains it without
-    dropout (the same logits as inference); dropout and twiddle are not
-    ported yet and raise."""
+    """train=True without dropout runs the stack as inference does (the
+    same logits); twiddle without recurrent dropout changes nothing, as
+    in the JAX package.  Dropout is ported now: with it, train=True needs
+    an rng and changes the logits (tests/test_torch_dropout.py)."""
     _, tcfg = configs(True, False)
     p = tmodel.init_model(torch.Generator().manual_seed(0), tcfg, "cpu")
     feats, lens = inputs()
     args = (torch.from_numpy(feats), torch.from_numpy(lens))
-    assert torch.equal(tmodel.apply_model(p, *args, tcfg, train=True),
-                       tmodel.apply_model(p, *args, tcfg))
-    for opt in (dict(forward_dropout=0.2), dict(recurrent_dropout=0.2),
-                dict(twiddle=True)):
-        with pytest.raises(NotImplementedError):
-            tmodel.apply_model(p, *args, dataclasses.replace(tcfg, **opt),
-                               train=True)
+    plain = tmodel.apply_model(p, *args, tcfg)
+    assert torch.equal(tmodel.apply_model(p, *args, tcfg, train=True), plain)
+    assert torch.equal(tmodel.apply_model(
+        p, *args, dataclasses.replace(tcfg, twiddle=True), train=True,
+        rng=torch.Generator().manual_seed(0)), plain)
+    for opt in (dict(forward_dropout=0.2), dict(recurrent_dropout=0.2)):
+        cfg = dataclasses.replace(tcfg, **opt)
+        with pytest.raises(ValueError, match="rng"):
+            tmodel.apply_model(p, *args, cfg, train=True)
+        got = tmodel.apply_model(p, *args, cfg, train=True,
+                                 rng=torch.Generator().manual_seed(0))
+        assert not torch.equal(got, plain)
 
 
 @pytest.mark.parametrize("opts", [
