@@ -10,7 +10,10 @@ Phases, one JSON line each:
           lengths, state_bf16 on and off): rtol 2e-2 / atol 2e-3, the JAX
           package's own tolerance for its bf16 kernel.
   dedup   kernel dedup_prune vs its plain version on the card (B=8, K=512,
-          m in {4096, 14336}): outputs must be equal.
+          m in {4096, 14336}), then on the adversarial rows of
+          tests/dedup_cases.py (-0.0/+0.0, negative scores, ties, all
+          dead, one dst, few live, int32-extreme dst) at K=512 and K=Mp:
+          outputs must be equal, bit for bit.
   graph   the 71-phone bigram TLGs built by the port's host code.
   main    the serving path at full width: the WSJ-phn 4 x 320 BiLSTM (120-d
           input, 72 targets, random weights from a seed) serves 8
@@ -78,7 +81,11 @@ Phases, one JSON line each:
           loss, seconds, peak memory; no LSTM kernel launches (the
           dropout scan runs in torch ops), 1 ctc_alpha, 1 ctc_beta.
   timing  kernel and plain-version times at the main paths' shapes (CUDA
-          events, median) beside each kernel's bound, and the library
+          events, median) beside each kernel's bound (kernel lstm_fwd also
+          per step, with its cluster plan and whether all its clusters
+          are co-resident; kernel dedup_prune also its device time per
+          launch under torch.profiler, since the wrapper's host time is
+          as long as the kernel), and the library
           call where one computes the same function (torch's ctc_loss);
           at H=640 also kernels lstm_scan_fwd/bwd (B=128, T=768), kernels
           lstm_fwd/lstm_bwd at D in {360, 1280} (B=128, T=768, and
@@ -87,7 +94,9 @@ Phases, one JSON line each:
   profile the forward (B=8, T=512) and the decode of its posteriors:
           wall ms (host clock to synchronize, profiler off; decode also
           per frame), then under torch.profiler the device-busy ms (sum
-          of kernel times), the idle share, and the top kernels.
+          of kernel times), the idle share, and the top kernels (the
+          forward's shows kernel lstm_fwd's projection, gemm_tc_kernel,
+          and its recurrence, lstm_rec_kernel, apart).
 Then the `kernels` report line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}` -- printed only when every phase
 passed.  Without CUDA, or without the eesen_tpu_torch package beside it,
@@ -105,6 +114,10 @@ import time
 import traceback as tb
 
 import numpy as np
+
+# the adversarial recombination rows (tests/dedup_cases.py; no jax, no torch)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
 
 SEED = 0
 B = 8
@@ -183,6 +196,18 @@ def _cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, kernel: str, reps: int) -> float:
+    """Device ms per launch of the CUDA kernel whose name holds `kernel`,
+    over `reps` calls of fn under torch.profiler: the kernel alone, where
+    an event pair around one call of a short kernel also takes in the
+    wrapper's host time before the launch."""
+    top = _profile(lambda: [fn() for _ in range(reps)])["top"] or []
+    hits = [r for r in top if kernel in r["kernel"]]
+    if not hits:
+        raise AssertionError(f"the profiler recorded no {kernel}")
+    return hits[0]["ms"] / hits[0]["calls"]
+
+
 def _mask(dev):
     import torch
 
@@ -242,20 +267,37 @@ def dedup_inputs(m: int, dev, seed: int):
     return torch.from_numpy(dst).to(dev), torch.from_numpy(score).to(dev)
 
 
+def _dedup_equal(what, dst, score, k):
+    """Kernel dedup_prune vs its plain version: equal outputs (and the
+    same sign bits, so -0.0 never stands for +0.0)."""
+    import torch
+    from eesen_tpu_torch.ops import beam_cuda
+
+    got = beam_cuda.dedup_prune(dst, score, k, DECODE["beam"])
+    ref = beam_cuda.dedup_prune_ref(dst, score, k, DECODE["beam"])
+    for name, a, r in zip(("states", "scores", "kept"), got, ref):
+        if not (torch.equal(a, r) and torch.equal(torch.signbit(a),
+                                                  torch.signbit(r))):
+            raise AssertionError(f"dedup_prune {what}: {name} differ")
+
+
 def phase_dedup(dev):
     import torch
+    from dedup_cases import CASES, make_case
     from eesen_tpu_torch.ops import beam_cuda
 
     errs = {}
     for m in (4096, 14336):
-        dst, score = dedup_inputs(m, dev, SEED + m)
-        got = beam_cuda.dedup_prune(dst, score, K, DECODE["beam"])
-        ref = beam_cuda.dedup_prune_ref(dst, score, K, DECODE["beam"])
-        for name, a, r in zip(("states", "scores", "kept"), got, ref):
-            if not torch.equal(a, r):
-                raise AssertionError(f"dedup_prune m={m}: {name} differ")
+        _dedup_equal(f"m={m}", *dedup_inputs(m, dev, SEED + m), K)
         errs[f"m{m}"] = 0.0
-    return {"max_abs_err": errs, "exact": True}
+        for k in (K, beam_cuda.padded_width(m)):
+            for case in CASES:
+                dst, score = make_case(case, B, m, seed=SEED + m + k)
+                _dedup_equal(f"m={m} k={k} {case}",
+                             torch.from_numpy(dst).to(dev),
+                             torch.from_numpy(score).to(dev), k)
+                errs[f"m{m}_k{k}_{case}"] = 0.0
+    return {"max_abs_err": errs, "exact": True, "cases": list(CASES)}
 
 
 def build_graph(num_words: int, num_sents: int):
@@ -1148,9 +1190,24 @@ def ctc_bound_ms(inp, which: str) -> float:
 
 
 def dedup_bound_ms(m: int) -> float:
+    """Kernel 2: reads dst and score once, writes K slots of three 4-byte
+    outputs; ~8 operations a lane (threshold, hash, compare), far below
+    the bytes."""
     nbytes = B * m * 8 + B * K * 12
-    ops = 2.0 * B * m * np.log2(m)          # two comparison sorts
+    ops = 8.0 * B * m
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS) * 1e3
+
+
+def fwd_residency(b: int, h: int):
+    """Kernel 1's cluster plan at (b, h), bf16, and whether all its
+    clusters are resident at once (cudaOccupancyMaxActiveClusters)."""
+    from eesen_tpu_torch.ops import build, lstm_cuda
+
+    p = lstm_cuda.fused_launch(b, 0, h).fwd
+    active = build.load().lstm_fwd_max_clusters(b, h, p.cluster, p.rows,
+                                                p.units, p.kres, 1)
+    return {**p._asdict(), "clusters": -(-b // p.rows),
+            "max_active_clusters": active}
 
 
 def phase_timing(dev):
@@ -1161,12 +1218,14 @@ def phase_timing(dev):
         inp = lstm_inputs(d, 320, dev, SEED + d)
         bound, by = lstm_bound(inp, [lstm_cuda.lstm_direction(
             **inp, state_bf16=True)], sum(LENGTHS))
+        ms = _cuda_ms(lambda: lstm_cuda.lstm_direction(
+            **inp, state_bf16=True), 5)
         out["lstm_fwd"][f"D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
-                **inp, state_bf16=True), 5),
+            ms=ms, ms_per_step=ms / T_MAX,
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **inp, state_bf16=True), 2),
             bound_ms=bound, bound_by=by,
+            clusters=fwd_residency(B, 320),
         )
     for m in (4096, 14336):
         dst, score = dedup_inputs(m, dev, SEED + m)
@@ -1174,6 +1233,9 @@ def phase_timing(dev):
         out["dedup_prune"][f"m{m}"] = dict(
             ms=_cuda_ms(lambda: beam_cuda.dedup_prune(dst, score, K, beam),
                         50),
+            device_ms=_device_ms(
+                lambda: beam_cuda.dedup_prune(dst, score, K, beam),
+                "dedup_prune_kernel", 50),
             plain_ms=_cuda_ms(lambda: beam_cuda.dedup_prune_ref(
                 dst, score, K, beam), 20),
             bound_ms=dedup_bound_ms(m),
@@ -1229,12 +1291,14 @@ def timing_libri(dev):
         res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
                                        with_residuals=True)
         bound, by = lstm_bound(fwd, res, valid)
+        ms = _cuda_ms(lambda: lstm_cuda.lstm_direction(
+            **fwd, state_bf16=True, with_residuals=True), 2)
         out["lstm_fwd_h640"][f"train_D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
-                **fwd, state_bf16=True, with_residuals=True), 2),
+            ms=ms, ms_per_step=ms / TRAIN_T,
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **fwd, state_bf16=True, with_residuals=True), 1),
-            bound_ms=bound, bound_by=by)
+            bound_ms=bound, bound_by=by,
+            clusters=fwd_residency(TRAIN_B, LIBRI_H))
         grads = lstm_cuda.lstm_direction_bwd(**bwd)
         bound, by = lstm_bound(bwd, grads, valid, passes=2)
         out["lstm_bwd_h640"][f"D{d}"] = dict(
@@ -1246,9 +1310,10 @@ def timing_libri(dev):
         inp = lstm_inputs(d, LIBRI_H, dev, SEED + d)
         bound, by = lstm_bound(inp, [lstm_cuda.lstm_direction(
             **inp, state_bf16=True)], sum(LENGTHS))
+        ms = _cuda_ms(lambda: lstm_cuda.lstm_direction(
+            **inp, state_bf16=True), 3)
         out["lstm_fwd_h640"][f"serve_D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
-                **inp, state_bf16=True), 3),
+            ms=ms, ms_per_step=ms / T_MAX, clusters=fwd_residency(B, LIBRI_H),
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **inp, state_bf16=True), 1),
             bound_ms=bound, bound_by=by)
@@ -1299,12 +1364,14 @@ def timing_train_shapes(dev):
         res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
                                        with_residuals=True)
         bound, by = lstm_bound(fwd, res, int(train_lengths().sum()))
+        ms = _cuda_ms(lambda: lstm_cuda.lstm_direction(
+            **fwd, state_bf16=True, with_residuals=True), 3)
         out["lstm_fwd_train"][f"D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction(
-                **fwd, state_bf16=True, with_residuals=True), 3),
+            ms=ms, ms_per_step=ms / TRAIN_T,
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **fwd, state_bf16=True, with_residuals=True), 1),
             bound_ms=bound, bound_by=by,
+            clusters=fwd_residency(TRAIN_B, 320),
         )
         grads = lstm_cuda.lstm_direction_bwd(**bwd)
         bound, by = lstm_bound(bwd, grads, int(train_lengths().sum()),
@@ -1387,7 +1454,7 @@ def _profile(fn):
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:6]]}
+                    for k, ms, n in rows[:8]]}
 
 
 def phase_profile(dev, graphs, state):
@@ -1454,11 +1521,12 @@ def kernels_report(state, timing):
          "max_abs_err": max(state["lstm"]["max_abs_err"].values()),
          "ms": lt["ms"], "plain_ms": lt["plain_ms"],
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "ms_per_step": lt["ms_per_step"],
          "shape": "B=8 T=512 D=640 H=320 bf16, state_bf16",
          "train_shape_max_abs_err": max(
              state["lstm_bwd"]["fwd_max_abs_err"].values()),
          "train_shape_ms": ltt["ms"], "train_shape_plain_ms": ltt["plain_ms"],
+         "train_shape_ms_per_step": ltt["ms_per_step"],
          "train_shape_bound_ms": ltt["bound_ms"],
          "libri_serve_launches": state["libri_serve_launches"]["lstm_fwd"],
          "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
@@ -1481,7 +1549,8 @@ def kernels_report(state, timing):
          "replaces": "eesen_tpu/ops/beam_pallas.py:110",
          "launches": state["launches"]["dedup_prune"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
-         "ms": dt["ms"], "plain_ms": dt["plain_ms"],
+         "ms": dt["ms"], "device_ms": dt["device_ms"],
+         "plain_ms": dt["plain_ms"],
          "bound_ms": dt["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "shape": "B=8 M=14336 (16384 lanes) K=512"},

@@ -2,238 +2,378 @@
 //
 // Replaces the TPU kernel `_fused_fwd_kernel` (eesen_tpu/ops/lstm_pallas.py:323)
 // and computes what it computes (lstm_pallas.py:345-376): the input
-// projection x.W_x + b inside the kernel, then per step m.W_m, the GIFO gates
-// with the i/f/o peepholes, and the length-mask freeze of the carried state.
-// Zero initial state; the c and m carries and every sum are float32.
+// projection x.W_x + b, then per step m.W_m, the GIFO gates with the i/f/o
+// peepholes, and the length-mask freeze of the carried state.  Zero initial
+// state; the c and m carries and every sum are float32.
 //
-// Layout: x [T,B,D] (bf16 or f32), mask [T,B] f32, W_x [D,4H] and W_m [H,4H]
-// in the type of x, bias [4H] f32, peepholes [3,H] f32 (i, f, o).  Outputs:
-// m carry [T,B,H] (bf16 when state_bf16, else f32) and, when the pointers are
-// not null, the c carry [T,B,H] (same type) and the post-activation gates
-// [T,B,4H] in the type of x (g, i, f, o) that the backward pass reads: bf16
-// on the bf16 path, as on the TPU; float32 on the f32 path, so that f32
-// training keeps f32 residuals.
+// Layout: x [T,B,D] (bf16 or f32), mask [T,B] f32, W_x [D,4H] in the type of
+// x, W_m as W_m^T [4H,H] on the bf16 path and as W_m [H,4H] on the f32 path
+// (the caller transposes), bias [4H] f32, peepholes [3,H] f32 (i, f, o).
+// Scratch: xw [T,B,4H] f32.  Outputs: m carry [T,B,H] (bf16 when state_bf16,
+// else f32) and, when the pointers are not null, the c carry [T,B,H] (same
+// type) and the post-activation gates [T,B,4H] in the type of x (g, i, f, o)
+// that the backward pass reads.
 //
-// Design.  One thread block per group of RB batch rows; a loop over t inside
-// the block replaces the TPU's sequential grid.  Thread (s, h) owns hidden
-// unit h, i.e. the four gate columns {g*H+h}, for every row of the group, and
-// sums a contiguous 1/S slice of the D+H input rows of [W_x; W_m] (split-K, so
-// that S*H threads keep the SM busy).  Each weight element is read once per
-// step per block, coalesced across h.  The partial sums meet in shared memory;
-// after a barrier the gate math, the mask freeze and the writes are spread
-// over all threads.  The c/m carries and the step's operand vector
-// [x_t ; m_{t-1} rounded to the compute type] live in shared memory.
+// Design.  Two kernels, as the TPU kernel splits its body (the per-block
+// MXU product of lstm_pallas.py:345-349, then the loop of :351-376):
+//   (1) the input projection of all T*B rows at once, xw = x.W_x + b, with
+//       float32 sums: gemm_tc_kernel (wmma bf16) or gemm_kernel (FMA, f32)
+//       from csrc/gemm_tile.cuh, the bias in the epilogue;
+//   (2) lstm_rec_kernel, the recurrence on thread-block clusters of C CTAs
+//       (C = 8, or 16 with the non-portable size).  A cluster owns `rows`
+//       batch rows (16 or 32; fewer only on the f32 path); CTA q owns hidden
+//       units [q*U, (q+1)*U) with all four of their gate columns, so the gate
+//       math stays local.  At the start each CTA copies its slice of W_m
+//       (the first `kres` of its H input rows, as many as fit) into shared
+//       memory and keeps it there; the rest is read from global memory (L2)
+//       every step.  Each step: the pre-activations m_{t-1}.W_m for the
+//       cluster's rows and the CTA's 4U columns (bf16: mma.sync m16n8k16, bf16
+//       in, f32 accumulate, operands in XOR-swizzled rows so the fragment
+//       loads hit 32 banks; f32: FMA), plus xw_t; the gates and the freeze;
+//       the outputs; then the new m, rounded to the type of x, is written
+//       into the next-step operand buffer of every CTA of the cluster through
+//       distributed shared memory (double-buffered), and one cluster barrier
+//       (barrier.cluster.arrive.release / wait.acquire) ends the step.
 //
-// Bound.  Per direction-layer the work is 2*B*T*(D+H)*4H FLOP: at B=8, T=512,
-// H=320 that is 4.6 GFLOP for D=120 and 10.1 GFLOP for D=640, i.e. ~5 us and
-// ~10 us at the H100's 989 TFLOP/s (bf16).  The real floor is the T-step
-// serial chain: each step must stream W_x and W_m (2.4 MB in bf16 at D=640)
-// from L2 into a single SM, since W_m (800 KiB) does not fit one SM's shared
-// memory.  At B=8 only ceil(B/RB) blocks run, so the card is mostly idle;
-// splitting the columns over a thread-block cluster (DSMEM) is the next step.
+// Bound.  Per direction-layer the work is 2*B*T*(D+H)*4H FLOP: at B=8,
+// T=512, H=320 that is 4.6 GFLOP for D=120 and 10.1 GFLOP for D=640, i.e.
+// ~5 us and ~10 us at the H100's 989 TFLOP/s (bf16).  The real floor is the
+// T-step serial chain: one cluster barrier and one DSMEM exchange a step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include "gemm_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int THREADS = 512;
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// at most 64 registers a thread, so that 1024 threads fit one SM's 64K
-template <typename TIn, typename TState, int RB>
-__global__ void __launch_bounds__(1024) lstm_fwd_kernel(const TIn* __restrict__ x, const float* __restrict__ mask,
-                                const TIn* __restrict__ wx, const float* __restrict__ bias,
-                                const TIn* __restrict__ wm, const float* __restrict__ ph,
-                                TState* __restrict__ m_out, TState* __restrict__ c_out,
-                                TIn* __restrict__ gates_out, int T, int B, int D,
-                                int H, int S) {
-  extern __shared__ float smem[];
-  const int K = D + H;            // rows of [W_x; W_m]
-  const int G = 4 * H;            // gate columns
-  float* vs = smem;               // [RB][K] operand: x_t then rounded m_{t-1}
-  float* ms = vs + RB * K;        // [RB][H] m carry (f32)
-  float* cs = ms + RB * H;        // [RB][H] c carry (f32)
-  float* part = cs + RB * H;      // [S][RB][G] split-K partial sums
+// 32-bit word `kw` of row `row` in a tile of rows of `rw` words (rw a
+// multiple of 32): XOR-swizzled inside each 32-word block, so that the eight
+// rows an mma fragment load touches land in eight different bank groups
+__device__ __forceinline__ int swz(int row, int kw, int rw) {
+  return row * rw + (kw ^ ((row & 7) << 2));
+}
 
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int h = tid % H;
-  const int s = tid / H;
-  const int b0 = blockIdx.x * RB;
-  const int nr = min(RB, B - b0);
-  const int chunk = (K + S - 1) / S;
-  const int k0 = s * chunk;
-  const int k1 = min(K, k0 + chunk);
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
 
-  for (int e = tid; e < RB * K; e += nthr) vs[e] = 0.0f;
-  for (int e = tid; e < RB * H; e += nthr) {
-    ms[e] = 0.0f;
-    cs[e] = 0.0f;
-  }
-  __syncthreads();
-  for (int e = tid; e < nr * D; e += nthr) {
-    const int r = e / D, d = e % D;
-    vs[r * K + d] = to_f(x[(size_t)(b0 + r) * D + d]);
-  }
-  __syncthreads();
+// c[0..3] += A (16x16, row-major) . B (16x8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  for (int t = 0; t < T; ++t) {
-    float acc[RB][4];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
+// Operand rows of the bf16 path are padded to a multiple of 64 elements
+// (32-word swizzle blocks); the f32 path keeps H.
+__host__ __device__ inline int kpad(int H, bool bf16) { return bf16 ? (H + 63) / 64 * 64 : H; }
 
-    const int kx1 = min(k1, D);
-    for (int k = k0; k < kx1; ++k) {
-      const TIn* w = wx + (size_t)k * G + h;
-      const float w0 = to_f(w[0]), w1 = to_f(w[H]), w2 = to_f(w[2 * H]), w3 = to_f(w[3 * H]);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float v = vs[r * K + k];
-        acc[r][0] += v * w0;
-        acc[r][1] += v * w1;
-        acc[r][2] += v * w2;
-        acc[r][3] += v * w3;
+// pre[r][j] = sum over k of op[r][k] W[k][j] for the CTA's 4U columns, on the
+// tensor cores: one warp per 16x8 output tile.  wmT rows past kres come from
+// global memory.
+__device__ __forceinline__ void rec_product(const __nv_bfloat16* op, const __nv_bfloat16* ws,
+                                            const __nv_bfloat16* __restrict__ wmT, float* pre,
+                                            int H, int U, int u0, int nu, int rows, int Kp,
+                                            int kres) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int cols = 4 * U;
+  const int ntiles = cols / 8, tiles = (rows / 16) * ntiles;
+  const uint32_t* a32 = reinterpret_cast<const uint32_t*>(op);
+  const uint32_t* w32 = reinterpret_cast<const uint32_t*>(ws);
+  const int rwa = Kp / 2, rww = kres / 2;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  for (int tile = warp; tile < tiles; tile += THREADS / 32) {
+    const int r0 = (tile / ntiles) * 16, n0 = (tile % ntiles) * 8;
+    const int j = n0 + gq;  // this lane's column of B
+    const int g = j / U, u = j % U;
+    const bool valid = u < nu;
+    const __nv_bfloat16* wg = wmT + (size_t)(g * H + u0 + (valid ? u : 0)) * H;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ks = 0; ks < Kp / 16; ++ks) {
+      const int kw = ks * 8 + tq;
+      uint32_t a[4], b[2];
+      a[0] = a32[swz(r0 + gq, kw, rwa)];
+      a[1] = a32[swz(r0 + gq + 8, kw, rwa)];
+      a[2] = a32[swz(r0 + gq, kw + 4, rwa)];
+      a[3] = a32[swz(r0 + gq + 8, kw + 4, rwa)];
+      if (ks * 16 < kres) {
+        b[0] = w32[swz(j, kw, rww)];
+        b[1] = w32[swz(j, kw + 4, rww)];
+      } else {
+        const int k = 2 * kw;
+        b[0] = pack2(valid && k < H ? wg[k] : zero, valid && k + 1 < H ? wg[k + 1] : zero);
+        b[1] = pack2(valid && k + 8 < H ? wg[k + 8] : zero,
+                     valid && k + 9 < H ? wg[k + 9] : zero);
       }
+      mma_bf16(acc, a, b);
     }
-    for (int k = max(k0, D); k < k1; ++k) {
-      const TIn* w = wm + (size_t)(k - D) * G + h;
-      const float w0 = to_f(w[0]), w1 = to_f(w[H]), w2 = to_f(w[2 * H]), w3 = to_f(w[3 * H]);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float v = vs[r * K + k];
-        acc[r][0] += v * w0;
-        acc[r][1] += v * w1;
-        acc[r][2] += v * w2;
-        acc[r][3] += v * w3;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) part[((size_t)s * RB + r) * G + g * H + h] = acc[r][g];
-    __syncthreads();
-
-    // gate math, mask freeze and outputs for every (row, unit) of the group
-    for (int e = tid; e < nr * H; e += nthr) {
-      const int r = e / H, u = e % H;
-      float pre[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float a = bias[g * H + u];
-        for (int q = 0; q < S; ++q) a += part[((size_t)q * RB + r) * G + g * H + u];
-        pre[g] = a;
-      }
-      const float c_prev = cs[r * H + u];
-      const float m_prev = ms[r * H + u];
-      const float gg = tanhf(pre[0]);
-      const float ig = sigm(pre[1] + c_prev * ph[u]);
-      const float fg = sigm(pre[2] + c_prev * ph[H + u]);
-      const float c_raw = fg * c_prev + ig * gg;
-      const float og = sigm(pre[3] + c_raw * ph[2 * H + u]);
-      const float m_raw = og * tanhf(c_raw);
-      const size_t row = (size_t)t * B + b0 + r;
-      const float mt = mask[row];
-      const float c_new = c_raw * mt + c_prev * (1.0f - mt);
-      const float m_new = m_raw * mt + m_prev * (1.0f - mt);
-      cs[r * H + u] = c_new;
-      ms[r * H + u] = m_new;
-      vs[r * K + D + u] = round_to<TIn>(m_new);
-      m_out[row * H + u] = from_f<TState>(m_new);
-      if (c_out != nullptr) c_out[row * H + u] = from_f<TState>(c_new);
-      if (gates_out != nullptr) {
-        TIn* gp = gates_out + row * G;
-        gp[u] = from_f<TIn>(gg);
-        gp[H + u] = from_f<TIn>(ig);
-        gp[2 * H + u] = from_f<TIn>(fg);
-        gp[3 * H + u] = from_f<TIn>(og);
-      }
-    }
-    // the next step's inputs: the x part of the operand is not read above
-    if (t + 1 < T) {
-      for (int e = tid; e < nr * D; e += nthr) {
-        const int r = e / D, d = e % D;
-        vs[r * K + d] = to_f(x[((size_t)(t + 1) * B + b0 + r) * D + d]);
-      }
-    }
-    __syncthreads();
+    pre[(r0 + gq) * cols + n0 + 2 * tq] = acc[0];
+    pre[(r0 + gq) * cols + n0 + 2 * tq + 1] = acc[1];
+    pre[(r0 + gq + 8) * cols + n0 + 2 * tq] = acc[2];
+    pre[(r0 + gq + 8) * cols + n0 + 2 * tq + 1] = acc[3];
   }
 }
 
-template <typename TIn, typename TState, int RB>
-cudaError_t launch(const void* x, const void* mask, const void* wx, const void* bias,
-                   const void* wm, const void* ph, void* m_out, void* c_out, void* gates_out,
-                   int T, int B, int D, int H, int S, size_t smem, cudaStream_t stream) {
-  auto kern = lstm_fwd_kernel<TIn, TState, RB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (B + RB - 1) / RB;
-  kern<<<grid, S * H, smem, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const float*>(mask), static_cast<const TIn*>(wx),
-      static_cast<const float*>(bias), static_cast<const TIn*>(wm),
-      static_cast<const float*>(ph), static_cast<TState*>(m_out), static_cast<TState*>(c_out),
-      static_cast<TIn*>(gates_out), T, B, D, H, S);
-  return cudaGetLastError();
+// the same product on the FMA units (f32 path): a thread per column and four
+// rows; W_m rows past kres come from global memory
+__device__ __forceinline__ void rec_product(const float* op, const float* ws,
+                                            const float* __restrict__ wm, float* pre, int H,
+                                            int U, int u0, int nu, int rows, int Kp, int kres) {
+  const int cols = 4 * U;
+  for (int item = threadIdx.x; item < cols * (rows / 4); item += THREADS) {
+    const int j = item % cols, r0 = (item / cols) * 4;
+    const int g = j / U, u = j % U;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < kres; ++k) {
+      const float w = ws[k * cols + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] += op[(r0 + i) * Kp + k] * w;
+    }
+    if (u < nu) {
+      const float* wg = wm + g * H + u0 + u;
+      for (int k = kres; k < H; ++k) {
+        const float w = wg[(size_t)k * 4 * H];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += op[(r0 + i) * Kp + k] * w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pre[(r0 + i) * cols + j] = acc[i];
+  }
 }
 
 template <typename TIn, typename TState>
-cudaError_t dispatch_rb(int rb, const void* x, const void* mask, const void* wx,
-                        const void* bias, const void* wm, const void* ph, void* m_out,
-                        void* c_out, void* gates_out, int T, int B, int D, int H, int S,
-                        size_t smem, cudaStream_t stream) {
-  switch (rb) {
-    case 1: return launch<TIn, TState, 1>(x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, S, smem, stream);
-    case 2: return launch<TIn, TState, 2>(x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, S, smem, stream);
-    default: return cudaErrorInvalidValue;
+__global__ void __launch_bounds__(THREADS)
+    lstm_rec_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
+                    const TIn* __restrict__ w, const float* __restrict__ ph,
+                    TState* __restrict__ m_out, TState* __restrict__ c_out,
+                    TIn* __restrict__ gates_out, int T, int B, int H, int U, int rows,
+                    int kres) {
+  constexpr bool BF16 = std::is_same<TIn, __nv_bfloat16>::value;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int G = 4 * H, cols = 4 * U;
+  const int Kp = kpad(H, BF16);
+  float* pre = reinterpret_cast<float*>(smem_raw);  // [rows][4U] m.W_m
+  float* cs = pre + rows * cols;                    // [rows][U] c carry
+  float* ms = cs + rows * U;                        // [rows][U] m carry
+  TIn* op = reinterpret_cast<TIn*>(ms + rows * U);  // [2][rows][Kp] m_{t-1}
+  TIn* ws = op + 2 * rows * Kp;                     // resident W_m slice
+
+  const int tid = threadIdx.x;
+  const int b0 = (blockIdx.x / C) * rows;
+  const int nr = min(rows, B - b0);
+  const int u0 = q * U;
+  const int nu = max(0, min(U, H - u0));
+
+  // the resident slice, zero outside [0, H) x this CTA's units: bf16 as
+  // [4U][kres] swizzled rows of W_m^T, f32 as [kres][4U]
+  if constexpr (BF16) {
+    const int rw = kres / 2;
+    uint32_t* ws32 = reinterpret_cast<uint32_t*>(ws);
+    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+    for (int e = tid; e < cols * rw; e += THREADS) {
+      const int j = e / rw, kw = e % rw, k = 2 * kw;
+      const int g = j / U, u = j % U;
+      const __nv_bfloat16* src = w + (size_t)(g * H + u0 + u) * H;
+      const bool valid = u < nu;
+      ws32[swz(j, kw, rw)] = pack2(valid && k < H ? src[k] : zero,
+                                   valid && k + 1 < H ? src[k + 1] : zero);
+    }
+  } else {
+    for (int e = tid; e < kres * cols; e += THREADS) {
+      const int k = e / cols, j = e % cols;
+      const int g = j / U, u = j % U;
+      ws[e] = u < nu ? w[(size_t)k * G + g * H + u0 + u] : 0.0f;
+    }
   }
+  for (int e = tid; e < 2 * rows * Kp; e += THREADS) op[e] = from_f<TIn>(0.0f);
+  for (int e = tid; e < 2 * rows * U; e += THREADS) cs[e] = 0.0f;  // c and m carries
+  cluster.sync();  // every CTA's buffers are zero before any remote write
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    rec_product(op + cur * rows * Kp, ws, w, pre, H, U, u0, nu, rows, Kp, kres);
+    __syncthreads();
+    // the gates, the mask freeze and the outputs for every (row, unit)
+    for (int e = tid; e < nr * nu; e += THREADS) {
+      const int r = e / nu, u = e % nu, hu = u0 + u;
+      const size_t row = (size_t)t * B + b0 + r;
+      const float* x4 = xw + row * G + hu;
+      const float* p4 = pre + r * cols + u;
+      const float c_prev = cs[r * U + u];
+      const float m_prev = ms[r * U + u];
+      const float gg = tanhf(x4[0] + p4[0]);
+      const float ig = sigm(x4[H] + p4[U] + c_prev * ph[hu]);
+      const float fg = sigm(x4[2 * H] + p4[2 * U] + c_prev * ph[H + hu]);
+      const float c_raw = fg * c_prev + ig * gg;
+      const float og = sigm(x4[3 * H] + p4[3 * U] + c_raw * ph[2 * H + hu]);
+      const float m_raw = og * tanhf(c_raw);
+      const float mt = mask[row];
+      const float c_new = c_raw * mt + c_prev * (1.0f - mt);
+      const float m_new = m_raw * mt + m_prev * (1.0f - mt);
+      cs[r * U + u] = c_new;
+      ms[r * U + u] = m_new;
+      m_out[row * H + hu] = from_f<TState>(m_new);
+      if (c_out != nullptr) c_out[row * H + hu] = from_f<TState>(c_new);
+      if (gates_out != nullptr) {
+        TIn* gp = gates_out + row * G + hu;
+        gp[0] = from_f<TIn>(gg);
+        gp[H] = from_f<TIn>(ig);
+        gp[2 * H] = from_f<TIn>(fg);
+        gp[3 * H] = from_f<TIn>(og);
+      }
+      if (t + 1 < T) {
+        // m_t, rounded to the type of x, into every CTA's next operand
+        int idx;
+        if constexpr (BF16) {
+          idx = 2 * swz(r, hu >> 1, Kp / 2) + (hu & 1);
+        } else {
+          idx = r * Kp + hu;
+        }
+        idx += (cur ^ 1) * rows * Kp;
+        const TIn v = from_f<TIn>(m_new);
+        for (int dq = 0; dq < C; ++dq) cluster.map_shared_rank(op, dq)[idx] = v;
+      }
+    }
+    cluster.sync();
+  }
+}
+
+// Shared memory of lstm_rec_kernel, in bytes (mirrored by ops/lstm_cuda.py
+// fwd_smem_bytes).
+long long rec_smem_bytes(int H, int rows, int units, int kres, bool bf16) {
+  const long long s = bf16 ? 2 : 4;
+  const long long cols = 4LL * units;
+  return rows * cols * 4 + 2LL * rows * units * 4 + 2LL * rows * kpad(H, bf16) * s +
+         (long long)kres * cols * s;
+}
+
+template <typename TIn, typename TState>
+cudaError_t rec_config(int B, int H, int cluster, int rows, int units, int kres,
+                       cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const bool bf16 = std::is_same<TIn, __nv_bfloat16>::value;
+  // the shapes the kernel takes: whole mma tiles, a multiple of 64 resident
+  // rows of W_m on the bf16 path, every unit owned
+  if (cluster < 1 || cluster > 16 || rows < 4 || rows % (bf16 ? 16 : 4) != 0 ||
+      (bf16 && (units % 2 != 0 || kres % 64 != 0)) || kres < 0 || kres > kpad(H, bf16) ||
+      (long long)units * cluster < H)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)rec_smem_bytes(H, rows, units, kres, bf16);
+  auto kern = lstm_rec_kernel<TIn, TState>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster * ((B + rows - 1) / rows));
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of this shape the card holds at once; 0 means one
+// cluster cannot be resident.
+template <typename TIn, typename TState>
+cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kres,
+                         cudaStream_t st, int* active) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(active, lstm_rec_kernel<TIn, TState>, &cfg);
+}
+
+template <typename TIn, typename TState>
+cudaError_t run(const void* x, const void* mask, const void* wx, const void* bias,
+                const void* w, const void* ph, void* m_out, void* c_out, void* gates_out,
+                void* xw, int T, int B, int D, int H, int cluster, int rows, int units, int kres,
+                cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, lstm_rec_kernel<TIn, TState>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  // (1) xw = x.W_x + b: A(tb, d) = x[tb*D + d], B(d, g) = W_x[d*4H + g]
+  err = gemm<TIn, TIn, float, TIn, false, true, true>(x, D, 1, wx, 4LL * H, 1, xw,
+                                                static_cast<const float*>(bias), T * B, 4 * H,
+                                                D, 1, st);
+  if (err != cudaSuccess) return err;
+  // (2) the recurrence
+  err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<TIn, TState>, static_cast<const float*>(xw),
+                           static_cast<const float*>(mask), static_cast<const TIn*>(w),
+                           static_cast<const float*>(ph), static_cast<TState*>(m_out),
+                           static_cast<TState*>(c_out), static_cast<TIn*>(gates_out), T, B, H,
+                           units, rows, kres);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the kernel needs for these sizes, in bytes.
-extern "C" long long lstm_fwd_smem_bytes(int D, int H, int rows_per_block, int split) {
-  const long long rb = rows_per_block;
-  return 4LL * (rb * (D + H) + 2 * rb * H + (long long)split * rb * 4 * H);
+// Shared memory of the recurrence kernel for these sizes, in bytes.
+extern "C" long long lstm_fwd_smem_bytes(int H, int rows, int units, int kres, int in_bf16) {
+  return rec_smem_bytes(H, rows, units, kres, in_bf16 != 0);
 }
 
-// Launches one LSTM direction on `stream`; returns cudaGetLastError().
-// in_bf16: x/W_x/W_m are bf16 (else f32).  state_bf16: m/c outputs bf16.
-// c_out and gates_out may be null.  split*H <= 1024, rows_per_block in
-// {1,2}: two rows a block ran fastest of {1,2,4,8} at the flagship shapes
-// on an H100 (the weight stream from L2 is paid per block, the FMAs per
-// row).
+// cudaOccupancyMaxActiveClusters for the recurrence kernel at this shape
+// (state type f32), or minus the CUDA error.
+extern "C" int lstm_fwd_max_clusters(int B, int H, int cluster, int rows, int units, int kres,
+                                     int in_bf16) {
+  int active = 0;
+  const cudaError_t err =
+      in_bf16 ? max_clusters<__nv_bfloat16, float>(B, H, cluster, rows, units, kres, 0, &active)
+              : max_clusters<float, float>(B, H, cluster, rows, units, kres, 0, &active);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
+// Runs one LSTM direction on `stream`: the input projection into the
+// scratch xw [T,B,4H] f32, then the recurrence on clusters of `cluster`
+// CTAs, each cluster `rows` batch rows, each CTA `units` hidden units with
+// the first `kres` input rows of its W_m slice resident.  Returns the first
+// CUDA error (cudaErrorInvalidConfiguration when not even one cluster can be
+// resident).  in_bf16: x/W_x/W_m^T are bf16 (else x/W_x/W_m f32);
+// state_bf16: m/c outputs bf16.  c_out and gates_out may be null.
 extern "C" int lstm_fwd(const void* x, const void* mask, const void* wx, const void* bias,
-                        const void* wm, const void* ph, void* m_out, void* c_out,
-                        void* gates_out, int T, int B, int D, int H, int in_bf16,
-                        int state_bf16, int rows_per_block, int split, void* stream) {
-  const size_t smem = (size_t)lstm_fwd_smem_bytes(D, H, rows_per_block, split);
+                        const void* w, const void* ph, void* m_out, void* c_out,
+                        void* gates_out, void* xw, int T, int B, int D, int H, int in_bf16,
+                        int state_bf16, int cluster, int rows, int units, int kres,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_bf16) {
     err = state_bf16
-              ? dispatch_rb<__nv_bfloat16, __nv_bfloat16>(rows_per_block, x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, split, smem, st)
-              : dispatch_rb<__nv_bfloat16, float>(rows_per_block, x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, split, smem, st);
+              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st)
+              : run<__nv_bfloat16, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st);
   } else {
     err = state_bf16
-              ? dispatch_rb<float, __nv_bfloat16>(rows_per_block, x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, split, smem, st)
-              : dispatch_rb<float, float>(rows_per_block, x, mask, wx, bias, wm, ph, m_out, c_out, gates_out, T, B, D, H, split, smem, st);
+              ? run<float, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st)
+              : run<float, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st);
   }
   return (int)err;
 }

@@ -9,6 +9,10 @@ src/decoder/faster-decoder.cc ProcessEmitting), and top-K, in one launch.
 
 The order of ties is fixed: sorts are lexicographic with the proposal's
 lane as the last key, so the kernel and `dedup_prune_ref` agree exactly.
+The kernel sorts no whole row: one thread-block cluster of CLUSTER CTAs
+per row keeps the best (score, lane) per destination in a hash table in
+distributed shared memory (TABLE_LOAD_INV * Mp slots), finds the K-th
+best winner by radix select, and sorts only the survivors.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ launches = 0
 
 PAD_DST = 0x3FFFFFFF
 MIN_LANES = 128
-# widest padded proposal row the kernel takes: 12 B per lane of shared
-# memory, 192 KiB at 16384 lanes (a block may use 227 KiB)
+# widest padded proposal row the kernel takes (at most four lanes a thread
+# of the cluster's 8 x 512)
 MAX_LANES = 16384
+CLUSTER = 8           # CTAs per row, each owning Mp / CLUSTER lanes
+TABLE_LOAD_INV = 2    # hash-table slots per padded lane (load <= 0.5)
 
 
 def next_pow2(n: int) -> int:
@@ -39,6 +45,16 @@ def next_pow2(n: int) -> int:
 def padded_width(m: int) -> int:
     """Lanes the kernel sorts for m proposals."""
     return max(next_pow2(m), MIN_LANES)
+
+
+def smem_bytes(mp: int, k: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel (csrc/dedup_prune.cu
+    dedup_prune_smem_bytes): its share of the table, a 64-bit key and a
+    32-bit tag per slot plus the slot kept for the empty tag, or, where
+    larger, the survivors' sort buffer of next_pow2(k) keys that CTA 0
+    puts in the same place; rounded up to 16 bytes."""
+    slots = TABLE_LOAD_INV * mp // CLUSTER + 1
+    return -(-max(12 * slots, 8 * next_pow2(k)) // 16) * 16
 
 
 def lexsort_rows(keys) -> torch.Tensor:
@@ -127,7 +143,7 @@ def dedup_prune(
     states = torch.empty((b, k), dtype=torch.int32, device=dst.device)
     scores = torch.empty((b, k), dtype=torch.float32, device=dst.device)
     kept = torch.empty((b, k), dtype=torch.int32, device=dst.device)
-    if b > 0:
+    if b > 0 and k > 0:
         err = build.load().dedup_prune(
             dst.data_ptr(), score.data_ptr(), states.data_ptr(),
             scores.data_ptr(), kept.data_ptr(), b, m, mp, k, float(beam),

@@ -6,7 +6,7 @@ once in parallel, and the objects are linked into ONE shared library with
 a plain C interface, `eesen_tpu_torch/_build/libeesen_kernels.so`, which
 is loaded with `ctypes`.  Nothing includes PyTorch's headers, so a cold
 build takes seconds.  The build runs at first use (never at import) and
-is reused while it is newer than every source.
+is reused while it is newer than every source and header.
 
     from eesen_tpu_torch.ops import build
     lib = build.load()          # builds if needed; raises if nvcc fails
@@ -58,13 +58,18 @@ def nvcc() -> str:
     return found
 
 
+def _inputs() -> List[str]:
+    """Every file the library is built from: SOURCES and the headers
+    (`*.cuh`) they include."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    return [os.path.join(CSRC_DIR, f) for f in (*SOURCES, *headers)]
+
+
 def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(
-        os.path.getmtime(os.path.join(CSRC_DIR, s)) > built for s in SOURCES
-    )
+    return any(os.path.getmtime(f) > built for f in _inputs())
 
 
 def build(verbose: bool = False) -> str:
@@ -121,10 +126,12 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(build())
-        lib.lstm_fwd.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        lib.lstm_fwd.argtypes = [_P] * 10 + [_I] * 10 + [_P]
         lib.lstm_fwd.restype = _I
-        lib.lstm_fwd_smem_bytes.argtypes = [_I] * 4
+        lib.lstm_fwd_smem_bytes.argtypes = [_I] * 5
         lib.lstm_fwd_smem_bytes.restype = ctypes.c_longlong
+        lib.lstm_fwd_max_clusters.argtypes = [_I] * 7
+        lib.lstm_fwd_max_clusters.restype = _I
         lib.lstm_bwd.argtypes = [_P] * 17 + [_I] * 10 + [_P]
         lib.lstm_bwd.restype = _I
         lib.lstm_bwd_smem_bytes.argtypes = [_I] * 3
@@ -140,6 +147,8 @@ def load() -> ctypes.CDLL:
         lib.ctc_beta.restype = _I
         lib.dedup_prune.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
         lib.dedup_prune.restype = _I
+        lib.dedup_prune_smem_bytes.argtypes = [_I] * 2
+        lib.dedup_prune_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [_I]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -19,9 +19,14 @@ multiply by the mask to get the layer output.  When autograd needs a
 gradient it returns through `LstmDirection`, whose forward keeps the
 residuals (c carry, gates) and whose backward is the backward kernel.
 
+Kernel 1 is two device kernels behind one call (one count in `launches`):
+the input projection of all T*B rows as one tiled product into a float32
+scratch, then the recurrence on thread-block clusters whose CTAs keep
+their slice of W_m in shared memory (`fwd_plan` sizes them).
+
 Which route a direction takes on the card: `fused_launch(B, D, H)` gives
 the launch parameters of kernels 1 and 3, or None where either cannot
-take the shape (more than 1024 threads, i.e. H > 1024, or more shared
+take the shape (kernel 3's 1024 threads, i.e. H > 1024, or more shared
 memory than a block has); then models/bilstm.py sends the direction to
 the v1 route (ops/lstm_v1_cuda.py, kernels 4 and 5).  This is the
 counterpart of `fused_block_ts` (lstm_pallas.py:761-777), which asks
@@ -44,13 +49,17 @@ from eesen_tpu_torch.ops import build
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): `launches` counts the forward kernel, `bwd_launches` the backward
-# pass (one count per call: the recurrence kernel and the products it feeds)
+# pass (one count per call each: kernel 1's projection and recurrence;
+# kernel 3's recurrence and the products it feeds)
 launches = 0
 bwd_launches = 0
 
 MAX_THREADS = 1024
 SMEM_LIMIT = 232448           # bytes of shared memory a block may use
-ROWS_PER_BLOCK = 2            # batch rows per thread block (1 or 2)
+ROWS_PER_BLOCK = 2            # kernel 3: batch rows per block (1 or 2)
+FWD_CLUSTERS = (8, 16)        # kernel 1: CTAs per cluster, in order of choice
+FWD_ROWS = (16, 32)           # kernel 1: rows per cluster at B <= 16, else
+                              # (halved on the f32 path while they don't fit)
 
 
 def _scan(
@@ -104,13 +113,33 @@ def lstm_direction_ref(
 
 
 def _split(h: int) -> int:
-    """Split-K factor: how many threads share one hidden unit."""
+    """Split-K factor of kernel 3's recurrence: threads per hidden unit."""
     return max(1, min(4, MAX_THREADS // h))
 
 
-def fwd_smem_bytes(d: int, h: int, rows: int, split: int) -> int:
-    """Shared memory of kernel 1 (csrc/lstm_fwd.cu lstm_fwd_smem_bytes)."""
-    return 4 * (rows * (d + h) + 2 * rows * h + split * rows * 4 * h)
+def fwd_kpad(h: int, bf16: bool) -> int:
+    """Length of an operand row of kernel 1's recurrence: H rounded up to
+    64 on the bf16 path (whole swizzle blocks), H on the f32 path."""
+    return -(-h // 64) * 64 if bf16 else h
+
+
+def fwd_units(h: int, cluster: int) -> int:
+    """Hidden units per CTA of kernel 1's recurrence (even, so that its 4U
+    gate columns are whole 8-column mma tiles)."""
+    u = -(-h // cluster)
+    return u + (u & 1)
+
+
+def fwd_smem_bytes(h: int, rows: int, units: int, kres: int,
+                   bf16: bool) -> int:
+    """Shared memory of kernel 1's recurrence (csrc/lstm_fwd.cu
+    lstm_fwd_smem_bytes): f32 pre-activations [rows, 4U] and carries
+    2 x [rows, U], the double-buffered operand 2 x [rows, Kp] and `kres`
+    resident input rows of the CTA's W_m slice, both in the type of x."""
+    s = 2 if bf16 else 4
+    cols = 4 * units
+    return (rows * cols * 4 + 2 * rows * units * 4
+            + 2 * rows * fwd_kpad(h, bf16) * s + kres * cols * s)
 
 
 def bwd_smem_bytes(h: int, rows: int, split: int) -> int:
@@ -119,30 +148,61 @@ def bwd_smem_bytes(h: int, rows: int, split: int) -> int:
     return 4 * rows * (13 * h + split * h)
 
 
+class FwdPlan(NamedTuple):
+    cluster: int       # CTAs per cluster (8, or 16 non-portable)
+    rows: int          # batch rows per cluster (a multiple of 16 on bf16)
+    units: int         # hidden units per CTA
+    kres: int          # input rows of the CTA's W_m slice kept resident
+
+
+def fwd_plan(b: int, h: int, bf16: bool = True) -> Optional[FwdPlan]:
+    """Cluster shape of kernel 1's recurrence: the smaller cluster whose
+    CTAs hold their whole W_m slice, else 16 CTAs with as many input rows
+    resident as fit (a multiple of 64 on bf16); rows per cluster 16 at
+    B <= 16, else 32, halved (f32 path, down to 4) until the operand fits.
+    None when not even the operand fits."""
+    s = 2 if bf16 else 4
+    kp = fwd_kpad(h, bf16)
+    step, min_rows = (64, 16) if bf16 else (1, 4)
+    plan = None
+    for cluster in FWD_CLUSTERS:
+        units = fwd_units(h, cluster)
+        rows = FWD_ROWS[0] if b <= FWD_ROWS[0] else FWD_ROWS[1]
+        while (rows > min_rows
+               and fwd_smem_bytes(h, rows, units, 0, bf16) > SMEM_LIMIT):
+            rows //= 2
+        free = SMEM_LIMIT - fwd_smem_bytes(h, rows, units, 0, bf16)
+        if free < 0:
+            continue
+        kres = min(kp, free // (4 * units * s) // step * step)
+        plan = FwdPlan(cluster, rows, units, kres)
+        if kres == kp:
+            break
+    return plan
+
+
 class FusedLaunch(NamedTuple):
-    rows_fwd: int      # batch rows per block of kernel 1
+    fwd: FwdPlan       # kernel 1's recurrence
     rows_bwd: int      # batch rows per block of kernel 3's recurrence
-    split: int         # threads that share one hidden unit (split-K)
+    split: int         # threads that share one hidden unit there (split-K)
 
 
-def fused_launch(b: int, d: int, h: int) -> Optional[FusedLaunch]:
+def fused_launch(b: int, d: int, h: int,
+                 bf16: bool = True) -> Optional[FusedLaunch]:
     """Launch parameters of kernels 1 and 3 for a direction of batch b,
-    input width d and cell width h, or None when either kernel cannot take
-    the shape on the card: split*h threads above 1024 (any h > 1024), or
-    more shared memory than a block may use even at one row per block.
-    Host arithmetic only.  B sets the grid, and caps the rows per block."""
+    input width d and cell width h (compute dtype bf16, else f32), or None
+    when either kernel cannot take the shape on the card: kernel 3's
+    split*h threads above 1024 (any h > 1024) or shared memory, or kernel
+    1's operand beyond a block's shared memory.  Host arithmetic only; the
+    input width plays no part (kernel 1's projection is a tiled product)."""
     split = _split(h)
     if split * h > MAX_THREADS:
         return None
     rows = min(ROWS_PER_BLOCK, max(b, 1))
-    rows_fwd = rows
-    while (rows_fwd > 1
-           and fwd_smem_bytes(d, h, rows_fwd, split) > SMEM_LIMIT):
-        rows_fwd //= 2
-    if (fwd_smem_bytes(d, h, rows_fwd, split) > SMEM_LIMIT
-            or bwd_smem_bytes(h, rows, split) > SMEM_LIMIT):
+    fwd = fwd_plan(b, h, bf16)
+    if fwd is None or bwd_smem_bytes(h, rows, split) > SMEM_LIMIT:
         return None
-    return FusedLaunch(rows_fwd, rows, split)
+    return FusedLaunch(fwd, rows, split)
 
 
 def _check(what: str, dev: torch.device, expect) -> None:
@@ -180,7 +240,8 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
         "w_m": (w_m, (h, 4 * h), cdt),
         "ph": (ph, (3, h), torch.float32),
     })
-    launch = fused_launch(b, d, h)
+    bf16 = cdt == torch.bfloat16
+    launch = fused_launch(b, d, h, bf16)
     if launch is None:
         raise ValueError(f"lstm_direction: D={d}, H={h} exceed the fused "
                          f"kernel's threads or shared memory (v1 route)")
@@ -192,13 +253,19 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
         c = torch.empty((t_max, b, h), dtype=sdt, device=x.device)
         gates = torch.empty((t_max, b, 4 * h), dtype=cdt, device=x.device)
     if t_max > 0 and b > 0:
+        p = launch.fwd
+        # the recurrence reads W_m^T [4H, H] on the bf16 path (mma operand
+        # rows along H), W_m [H, 4H] on the f32 path
+        w = w_m.t().contiguous() if bf16 else w_m
+        xw = torch.empty((t_max, b, 4 * h), dtype=torch.float32,
+                         device=x.device)
         err = lib.lstm_fwd(
             x.data_ptr(), mask.data_ptr(), w_x.data_ptr(), bias.data_ptr(),
-            w_m.data_ptr(), ph.data_ptr(), m.data_ptr(),
+            w.data_ptr(), ph.data_ptr(), m.data_ptr(),
             c.data_ptr() if c is not None else None,
-            gates.data_ptr() if gates is not None else None,
-            t_max, b, d, h, int(cdt == torch.bfloat16), int(state_bf16),
-            launch.rows_fwd, launch.split,
+            gates.data_ptr() if gates is not None else None, xw.data_ptr(),
+            t_max, b, d, h, int(bf16), int(state_bf16),
+            p.cluster, p.rows, p.units, p.kres,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(err, "lstm_fwd")

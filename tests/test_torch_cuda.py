@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from dedup_cases import CASES, make_case
+
 from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder.arpa import arpa_to_fst
 from eesen_tpu_torch.decoder.ctc_graph import build_lg, build_tlg, compile_lang
@@ -165,12 +167,19 @@ def test_lstm_scan_kernels_match_plain(dev, h):
 
 
 def test_smem_formulas_match_the_library(dev):
-    """The host's shared-memory arithmetic (the route choice) is the
-    kernels' own."""
+    """The host's shared-memory arithmetic (the route choice, kernel 1's
+    cluster plan, kernel 2's table) is the kernels' own."""
     lib = build.load()
-    for d, h, rb, s in ((120, 320, 2, 3), (1280, 640, 1, 1), (64, 32, 2, 4)):
-        assert lib.lstm_fwd_smem_bytes(d, h, rb, s) == \
-            lstm_cuda.fwd_smem_bytes(d, h, rb, s)
+    for b, h in ((8, 320), (128, 320), (8, 640), (128, 640), (20, 1024),
+                 (3, 32)):
+        for bf16 in (True, False):
+            p = lstm_cuda.fused_launch(b, 64, h, bf16).fwd
+            got = lib.lstm_fwd_smem_bytes(h, p.rows, p.units, p.kres,
+                                          int(bf16))
+            assert got == lstm_cuda.fwd_smem_bytes(h, p.rows, p.units,
+                                                   p.kres, bf16)
+            assert got <= lstm_cuda.SMEM_LIMIT
+    for h, rb, s in ((320, 2, 3), (640, 1, 1), (32, 2, 4)):
         assert lib.lstm_bwd_smem_bytes(h, rb, s) == \
             lstm_cuda.bwd_smem_bytes(h, rb, s)
     for h, rb in ((640, 2), (1152, 1)):
@@ -178,6 +187,68 @@ def test_smem_formulas_match_the_library(dev):
             lstm_v1_cuda.fwd_smem_bytes(h, rb)
         assert lib.lstm_scan_bwd_smem_bytes(h, rb) == \
             lstm_v1_cuda.bwd_smem_bytes(h, rb)
+    for mp, k in ((128, 64), (4096, 512), (16384, 512), (16384, 16384)):
+        assert lib.dedup_prune_smem_bytes(mp, k) == \
+            beam_cuda.smem_bytes(mp, k)
+
+
+@pytest.mark.parametrize("b,h", [(8, 320), (128, 320), (8, 640), (128, 640)])
+def test_lstm_clusters_are_co_resident(dev, b, h):
+    """Every cluster of kernel 1's recurrence fits on the card at once at
+    the serving and training shapes (no second wave)."""
+    p = lstm_cuda.fused_launch(b, 64, h).fwd
+    active = build.load().lstm_fwd_max_clusters(b, h, p.cluster, p.rows,
+                                                p.units, p.kres, 1)
+    assert active >= -(-b // p.rows)
+
+
+def shape_args(dev, dtype, b, h, t=9, d=48, seed=0):
+    """Kernel 1's inputs at width h: row 0 full length, the last row (for
+    b > 1) of length 0, the rest in between; weights +-0.1."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.uniform(-0.1, 0.1, s).astype(np.float32)).to(dev)
+    lens = rng.integers(1, t + 1, b)
+    lens[0] = t
+    if b > 1:
+        lens[-1] = 0
+    mask = (torch.arange(t)[:, None] < torch.from_numpy(lens)[None]).float()
+    x = torch.from_numpy(rng.standard_normal((t, b, d)).astype(np.float32))
+    return dict(x=x.to(dev, dtype), mask=mask.to(dev),
+                w_x=f(d, 4 * h).to(dtype), bias=f(4 * h),
+                w_m=f(h, 4 * h).to(dtype), ph=f(3, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8, 20, 128])
+@pytest.mark.parametrize("h", [320, 640, 1024])
+def test_lstm_kernel_shapes(dev, h, b, dtype):
+    """Kernel 1 (projection + cluster recurrence) against its plain version
+    at the cluster shapes it takes (8- and 16-CTA clusters, 16 and 32 rows,
+    W_m slices wholly and partly resident), state_bf16 on and off, with and
+    without residuals: m and c at the bf16 tolerance rtol 2e-2 / atol 2e-3
+    (f32 compute and state: 1e-5, sums in another order), the gates at the
+    bf16 one."""
+    args = shape_args(dev, dtype, b, h)
+    for sb in (False, True):
+        tol = (1e-5, 1e-5) if dtype == torch.float32 and not sb else \
+            (2e-2, 2e-3)
+        for res in (False, True):
+            before = lstm_cuda.launches
+            got = lstm_cuda.lstm_direction(**args, state_bf16=sb,
+                                           with_residuals=res)
+            want = lstm_cuda.lstm_direction_ref(**args, state_bf16=sb,
+                                                with_residuals=res)
+            torch.cuda.synchronize()
+            assert lstm_cuda.launches == before + 1
+            if not res:
+                got, want = (got,), (want,)
+            for name, g, w, (rtol, atol) in zip(
+                    ("m", "c", "gates"), got, want,
+                    (tol, tol, (2e-2, 2e-3))):
+                assert g.dtype == w.dtype and g.shape == w.shape, name
+                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                           atol=atol, msg=f"{name} sb={sb}")
 
 
 def test_direction_above_1024_takes_the_v1_route(dev):
@@ -273,6 +344,31 @@ def test_dedup_kernel_equals_plain(dev, m, k):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,k", [
+    (128, 64), (128, 128), (4096, 64), (4096, 512), (4096, 4096),
+    (14336, 64), (14336, 512), (14336, 16384), (16384, 512), (16384, 16384),
+])
+def test_dedup_kernel_adversarial(dev, m, k):
+    """The cluster kernel equals its plain version bit for bit on every
+    adversarial case (-0.0/+0.0, negative scores, ties, every lane dead,
+    one dst, fewer live lanes than K, K = Mp, int32-extreme dst), with
+    launches counted."""
+    for case in CASES:
+        dst, score = make_case(case, 8, m, seed=m + k)
+        dst_t = torch.from_numpy(dst).to(dev)
+        score_t = torch.from_numpy(score).to(dev)
+        before = beam_cuda.launches
+        got = beam_cuda.dedup_prune(dst_t, score_t, k, 6.0)
+        want = beam_cuda.dedup_prune_ref(dst_t, score_t, k, 6.0)
+        torch.cuda.synchronize()
+        assert beam_cuda.launches == before + 1
+        for name, g, w in zip(("states", "scores", "kept"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w), f"{case}: {name}"
+            if name == "scores":      # -0.0 is never written
+                assert torch.equal(torch.signbit(g), torch.signbit(w)), case
 
 
 def test_dedup_kernel_refuses_wide_rows(dev):
