@@ -12,8 +12,8 @@ Phases, one JSON line each:
   dedup   kernel dedup_prune vs its plain version on the card (B=8, K=512,
           m in {4096, 14336}), then on the adversarial rows of
           tests/dedup_cases.py (-0.0/+0.0, negative scores, ties, all
-          dead, one dst, few live, int32-extreme dst) at K=512 and K=Mp:
-          outputs must be equal, bit for bit.
+          dead, one dst, few live, int32-extreme dst, NaN scores) at K=512
+          and K=Mp: outputs must be equal, bit for bit.
   graph   the 71-phone bigram TLGs built by the port's host code.
   main    the serving path at full width: the WSJ-phn 4 x 320 BiLSTM (120-d
           input, 72 targets, random weights from a seed) serves 8
@@ -35,9 +35,11 @@ Phases, one JSON line each:
           largest entry, see BWD_W_TOL), rtol 5e-2 / atol 2e-2 on dx, and
           every gradient within BWD_REL_L2 relative L2.
   ctc     kernels ctc_alpha and ctc_beta vs their plain versions on the
-          card (B=128, T=768, L=100 so S=201, mixed frame and label
-          lengths, repeated labels, a length-0 row): LOG_ZERO positions
-          identical, elsewhere within rtol CTC_RTOL / atol CTC_ATOL.
+          card at B=128 and the CTC_CASES shapes (T=768, L=100 so S=201;
+          T=768, L=200 so S=401; T=1300, L=600 so S=1201, two states a
+          thread), mixed frame and label lengths, repeated labels, a
+          length-0 row: LOG_ZERO positions identical, elsewhere within
+          rtol CTC_RTOL / atol CTC_ATOL.
   train   the training path at full width: the same 4 x 320 model trained
           with SGD (momentum 0.9, max_grad 50, lr 4e-5) through
           training.trainer.make_train_step.  (i) one step on 8 rows of
@@ -83,10 +85,14 @@ Phases, one JSON line each:
   timing  kernel and plain-version times at the main paths' shapes (CUDA
           events, median) beside each kernel's bound (kernel lstm_fwd also
           per step, with its cluster plan and whether all its clusters
-          are co-resident; kernel dedup_prune also its device time per
-          launch under torch.profiler, since the wrapper's host time is
-          as long as the kernel), and the library
-          call where one computes the same function (torch's ctc_loss);
+          are co-resident; kernel lstm_bwd also the profiler's device ms
+          of its recurrence and of its products apart, the recurrence per
+          step, and its cluster plan and residency; kernel dedup_prune
+          also its device time per launch under torch.profiler, since the
+          wrapper's host time is as long as the kernel; kernels ctc_alpha
+          and ctc_beta at the three CTC_CASES shapes), and the library
+          call where one computes the same function (torch's ctc_loss on
+          the same logits);
           at H=640 also kernels lstm_scan_fwd/bwd (B=128, T=768), kernels
           lstm_fwd/lstm_bwd at D in {360, 1280} (B=128, T=768, and
           serving B=8, T=512), and the two routes' forward + backward per
@@ -599,56 +605,80 @@ def phase_lstm_bwd(dev):
                         "gates": (GATES_RTOL, GATES_ATOL)}}
 
 
-def ctc_train_inputs(dev, seed: int):
-    """The kernels' inputs at the training shapes: random logits through
-    the port's CTC prep, labels with repeats, mixed lengths, a length-0
-    row (frames and labels)."""
+# the CTC shapes: WSJ training (S=201), LibriSpeech training (S=401), and
+# a 600-character transcript (S=1201, past one thread a state) over 1300
+# frames; (frames, labels, classes, frames per label at most)
+CTC_CASES = {"S201": (TRAIN_T, TRAIN_L, 72, 3),
+             "S401": (TRAIN_T, LIBRI_L, LIBRI_V, 3),
+             "S1201": (1300, 600, LIBRI_V, 2)}
+
+
+def ctc_train_inputs(dev, seed: int, case: str = "S201"):
+    """The kernels' inputs at a CTC_CASES shape, B=128: random logits
+    through the port's CTC prep, labels with repeats, the training row
+    lengths scaled to the case's frames (a length-0 row, frames and
+    labels), min(L, frames / frames-per-label) labels a row.  Returns
+    the kernels' inputs and the same logits, labels and lengths for
+    torch's ctc_loss."""
     import torch
     from eesen_tpu_torch.ops.ctc import _ctc_prep, _final_states
     from eesen_tpu_torch.utils.math import LOG_ZERO
 
+    t, l, v, fpl = CTC_CASES[case]
     rng = np.random.default_rng(seed)
-    lens = train_lengths()
-    lab_l = np.minimum(TRAIN_L, lens // 3)
-    labels = rng.integers(1, 72, (TRAIN_B, TRAIN_L))
+    lens = np.round(train_lengths() * t / TRAIN_T).astype(np.int64)
+    lab_l = np.minimum(l, lens // fpl)
+    labels = rng.integers(1, v, (TRAIN_B, l))
     labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]
     for i, n in enumerate(lab_l):
         labels[i, n:] = 0
     logits = torch.from_numpy(rng.standard_normal(
-        (TRAIN_B, TRAIN_T, 72)).astype(np.float32)).to(dev)
+        (TRAIN_B, t, v)).astype(np.float32)).to(dev)
     lab_l_t = torch.from_numpy(lab_l).to(dev)
-    _, _, can_skip, _, lp_e = _ctc_prep(
-        logits, torch.from_numpy(labels).to(dev), lab_l_t, 0)
+    labels_t = torch.from_numpy(labels).to(dev)
+    _, _, can_skip, _, lp_e = _ctc_prep(logits, labels_t, lab_l_t, 0)
     _, _, init = _final_states(lab_l_t, lp_e.shape[2])
-    return dict(lp_e=lp_e.contiguous(),
-                can_skip_f=torch.where(can_skip, 0.0, LOG_ZERO).contiguous(),
-                beta_init_row=init.contiguous(),
-                logit_lengths=torch.from_numpy(lens).to(dev))
+    lens_t = torch.from_numpy(lens).to(dev)
+    inp = dict(lp_e=lp_e.contiguous(),
+               can_skip_f=torch.where(can_skip, 0.0, LOG_ZERO).contiguous(),
+               beta_init_row=init.contiguous(), logit_lengths=lens_t)
+    lib = dict(log_probs=torch.log_softmax(logits, -1).transpose(0, 1),
+               targets=labels_t, input_lengths=lens_t, target_lengths=lab_l_t)
+    return inp, lib
 
 
 def phase_ctc(dev):
     from eesen_tpu_torch.ops import ctc_cuda
     from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
 
-    inp = ctc_train_inputs(dev, SEED + 3)
-    got = ctc_cuda.ctc_alpha_beta(**inp)
-    ref = ctc_cuda.ctc_alpha_beta_ref(**inp)
-    errs = {}
-    for name, g, r in zip(("alpha", "beta"), got, ref):
-        g, r = g.cpu().numpy(), r.cpu().numpy()
-        fin = r > LOG_ZERO_THRESHOLD
-        if not np.array_equal(g > LOG_ZERO_THRESHOLD, fin):
-            raise AssertionError(f"ctc {name}: LOG_ZERO positions differ")
-        errs[name] = float(np.abs(g[fin] - r[fin]).max())
-        if not np.all(np.isfinite(g)) or not np.allclose(
-                g[fin], r[fin], rtol=CTC_RTOL, atol=CTC_ATOL):
-            raise AssertionError(f"ctc {name}: max abs err {errs[name]}")
-    pad = int(np.flatnonzero(train_lengths() == 0)[0])
-    a, b = got[0][pad], got[1][pad]
-    if not (bool((a == a[:1]).all()) and bool((b == LOG_ZERO).all())):
-        raise AssertionError("ctc: the length-0 row is not init / LOG_ZERO")
-    return {"max_abs_err": errs, "rtol": CTC_RTOL, "atol": CTC_ATOL,
-            "states": int(inp["lp_e"].shape[2])}
+    errs, states = {}, {}
+    for case in CTC_CASES:
+        inp, _ = ctc_train_inputs(dev, SEED + 3, case)
+        got = ctc_cuda.ctc_alpha_beta(**inp)
+        ref = ctc_cuda.ctc_alpha_beta_ref(**inp)
+        states[case] = int(inp["lp_e"].shape[2])
+        for name, g, r in zip(("alpha", "beta"), got, ref):
+            g, r = g.cpu().numpy(), r.cpu().numpy()
+            fin = r > LOG_ZERO_THRESHOLD
+            if not np.array_equal(g > LOG_ZERO_THRESHOLD, fin):
+                raise AssertionError(f"ctc {case} {name}: LOG_ZERO positions "
+                                     f"differ")
+            errs[f"{case}_{name}"] = float(np.abs(g[fin] - r[fin]).max())
+            if not np.all(np.isfinite(g)) or not np.allclose(
+                    g[fin], r[fin], rtol=CTC_RTOL, atol=CTC_ATOL):
+                raise AssertionError(f"ctc {case} {name}: max abs err "
+                                     f"{errs[f'{case}_{name}']}")
+        pad = int(np.flatnonzero(train_lengths() == 0)[0])
+        a, b = got[0][pad], got[1][pad]
+        if not (bool((a == a[:1]).all()) and bool((b == LOG_ZERO).all())):
+            raise AssertionError(f"ctc {case}: the length-0 row is not "
+                                 f"init / LOG_ZERO")
+        del got, ref, inp
+    return {"max_abs_err": {w: max(v for k, v in errs.items()
+                                   if k.endswith(w))
+                            for w in ("alpha", "beta")},
+            "max_abs_err_by_case": errs, "rtol": CTC_RTOL,
+            "atol": CTC_ATOL, "states": states}
 
 
 def train_setup(dev):
@@ -1210,6 +1240,78 @@ def fwd_residency(b: int, h: int):
             "max_active_clusters": active}
 
 
+def bwd_residency(b: int, h: int):
+    """Kernel 3's recurrence plan at (b, h), bf16, and whether all its
+    clusters are resident at once (one wave)."""
+    from eesen_tpu_torch.ops import build, lstm_cuda
+
+    p = lstm_cuda.fused_launch(b, 0, h).bwd
+    active = build.load().lstm_bwd_max_clusters(b, h, *p, 1)
+    clusters = -(-b // p.rows)
+    return {**p._asdict(), "clusters": clusters,
+            "max_active_clusters": active, "one_wave": active >= clusters}
+
+
+def _device_split(fn, groups, reps: int = 4):
+    """Device time of `reps` calls of fn() under torch.profiler, summed by
+    groups of kernel names ({group: substrings}; the rest under "other"):
+    {group: {"ms": total ms, "launches": kernels recorded}}.  The launch
+    counts show what the window recorded: this machine's profiler can
+    drop kernel records (PERF.md), and a one-call window has recorded
+    none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {g: {"ms": 0.0, "launches": 0} for g in (*groups, "other")}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            g = next((g for g, names in groups.items()
+                      if any(n in e.key for n in names)), "other")
+            out[g]["ms"] += e.self_device_time_total / 1e3
+            out[g]["launches"] += e.count
+    return out
+
+
+# kernel 3's device kernels: the recurrence, and the products with their
+# partial sums; "other" is the wrapper's torch ops (the W_m slice layout)
+BWD_GROUPS = {"recurrence": ("lstm_bwd_rec_kernel",),
+              "products": ("gemm_tc_kernel", "gemm_kernel", "sum_rows_kernel")}
+
+
+def bwd_timing(bwd, valid: int, b: int, h: int, reps: int):
+    """Kernel 3 per direction-layer: event ms, the plain version's, its
+    bound, the device ms of its recurrence (per launch, and per step) and
+    of its products (per call: 3 tiled products and 3 partial sums), both
+    from the profiler's recorded launches, and its cluster plan and
+    residency."""
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    grads = lstm_cuda.lstm_direction_bwd(**bwd)
+    bound, by = lstm_bound(bwd, grads, valid, passes=2)
+    split = _device_split(lambda: lstm_cuda.lstm_direction_bwd(**bwd),
+                          BWD_GROUPS)
+    rec, prod = split["recurrence"], split["products"]
+    rec_ms = rec["ms"] / rec["launches"] if rec["launches"] else None
+    t_max = bwd["x"].shape[0]
+    return dict(
+        ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), reps),
+        plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd_ref(**bwd), 1),
+        bound_ms=bound, bound_by=by,
+        rec_ms=rec_ms,
+        rec_us_per_step=rec_ms * 1e3 / t_max if rec_ms is not None else None,
+        products_ms=(6 * prod["ms"] / prod["launches"] if prod["launches"]
+                     else None),
+        device_split=split, clusters=bwd_residency(b, h))
+
+
 def phase_timing(dev):
     from eesen_tpu_torch.ops import beam_cuda, lstm_cuda
 
@@ -1299,14 +1401,9 @@ def timing_libri(dev):
                 **fwd, state_bf16=True, with_residuals=True), 1),
             bound_ms=bound, bound_by=by,
             clusters=fwd_residency(TRAIN_B, LIBRI_H))
-        grads = lstm_cuda.lstm_direction_bwd(**bwd)
-        bound, by = lstm_bound(bwd, grads, valid, passes=2)
-        out["lstm_bwd_h640"][f"D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), 2),
-            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd_ref(
-                **bwd), 1),
-            bound_ms=bound, bound_by=by)
-        del fwd, bwd, res, grads
+        out["lstm_bwd_h640"][f"D{d}"] = bwd_timing(bwd, valid, TRAIN_B,
+                                                   LIBRI_H, 2)
+        del fwd, bwd, res
         inp = lstm_inputs(d, LIBRI_H, dev, SEED + d)
         bound, by = lstm_bound(inp, [lstm_cuda.lstm_direction(
             **inp, state_bf16=True)], sum(LENGTHS))
@@ -1351,19 +1448,21 @@ def _ctc_kernel(which: str, inp, out):
 
 
 def timing_train_shapes(dev):
-    """Kernels 1 and 3 per direction-layer and kernels 6 and 7 at the
-    training shapes (B=128, T=768), and torch's ctc_loss (forward; forward
-    + backward) on the same log-probabilities as the CTC yardstick."""
+    """Kernels 1 and 3 per direction-layer at the training shapes (B=128,
+    T=768, H=320), and kernels 6 and 7 at the CTC_CASES shapes beside
+    torch's ctc_loss (forward; forward + backward) on the same logits,
+    labels and lengths as the CTC yardstick."""
     import torch
     from eesen_tpu_torch.ops import ctc_cuda, lstm_cuda
 
     out = {"lstm_fwd_train": {}, "lstm_bwd": {}, "ctc_alpha": {},
            "ctc_beta": {}}
+    valid = int(train_lengths().sum())
     for d in (120, 640):
         fwd, bwd = train_lstm_inputs(d, 320, dev, SEED + d + 1, True)
         res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
                                        with_residuals=True)
-        bound, by = lstm_bound(fwd, res, int(train_lengths().sum()))
+        bound, by = lstm_bound(fwd, res, valid)
         ms = _cuda_ms(lambda: lstm_cuda.lstm_direction(
             **fwd, state_bf16=True, with_residuals=True), 3)
         out["lstm_fwd_train"][f"D{d}"] = dict(
@@ -1373,51 +1472,41 @@ def timing_train_shapes(dev):
             bound_ms=bound, bound_by=by,
             clusters=fwd_residency(TRAIN_B, 320),
         )
-        grads = lstm_cuda.lstm_direction_bwd(**bwd)
-        bound, by = lstm_bound(bwd, grads, int(train_lengths().sum()),
-                               passes=2)
-        out["lstm_bwd"][f"D{d}"] = dict(
-            ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), 3),
-            plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd_ref(
-                **bwd), 1),
-            bound_ms=bound, bound_by=by,
-        )
-        del fwd, bwd, res, grads
-    inp = ctc_train_inputs(dev, SEED + 3)
-    buf = torch.empty_like(inp["lp_e"])
-    refs = {
-        "alpha": lambda: ctc_cuda.ctc_alpha_ref(
-            inp["lp_e"], inp["can_skip_f"], inp["logit_lengths"]),
-        "beta": lambda: ctc_cuda.ctc_beta_ref(**inp),
-    }
-    # the library yardstick: torch's CTC loss on log-probabilities with
-    # the same lengths (forward computes alpha, backward beta)
-    rng = np.random.default_rng(SEED + 3)
-    lp = torch.log_softmax(torch.from_numpy(rng.standard_normal(
-        (TRAIN_T, TRAIN_B, 72)).astype(np.float32)).to(dev), -1)
-    lens = inp["logit_lengths"]
-    lab_l = torch.minimum(torch.full_like(lens, TRAIN_L), lens // 3)
-    targets = torch.from_numpy(rng.integers(1, 72, (TRAIN_B, TRAIN_L))).to(dev)
-    lp_g = lp.clone().requires_grad_()
+        out["lstm_bwd"][f"D{d}"] = bwd_timing(bwd, valid, TRAIN_B, 320, 3)
+        del fwd, bwd, res
+    for case in CTC_CASES:
+        inp, lib = ctc_train_inputs(dev, SEED + 3, case)
+        buf = torch.empty_like(inp["lp_e"])
+        refs = {
+            "alpha": lambda: ctc_cuda.ctc_alpha_ref(
+                inp["lp_e"], inp["can_skip_f"], inp["logit_lengths"]),
+            "beta": lambda: ctc_cuda.ctc_beta_ref(**inp),
+        }
+        # the library yardstick: torch's CTC loss on the same logits
+        # (forward computes alpha, backward beta)
+        lp_g = lib["log_probs"].detach().clone().requires_grad_()
 
-    def lib_fwd():
-        return torch.nn.functional.ctc_loss(lp, targets, lens, lab_l,
-                                            reduction="sum")
+        def lib_fwd():
+            return torch.nn.functional.ctc_loss(**lib, reduction="sum")
 
-    def lib_fwd_bwd():
-        torch.nn.functional.ctc_loss(lp_g, targets, lens, lab_l,
-                                     reduction="sum").backward()
+        def lib_fwd_bwd():
+            torch.nn.functional.ctc_loss(
+                lp_g, lib["targets"], lib["input_lengths"],
+                lib["target_lengths"], reduction="sum").backward()
 
-    library = {"alpha": (_cuda_ms(lib_fwd, 10), "F.ctc_loss forward"),
-               "beta": (_cuda_ms(lib_fwd_bwd, 10),
-                        "F.ctc_loss forward + backward")}
-    for which in ("alpha", "beta"):
-        out[f"ctc_{which}"]["S201"] = dict(
-            ms=_cuda_ms(lambda: _ctc_kernel(which, inp, buf), 20),
-            plain_ms=_cuda_ms(refs[which], 2),
-            bound_ms=ctc_bound_ms(inp, which),
-            library_ms=library[which][0], library_call=library[which][1],
-        )
+        library = {"alpha": (_cuda_ms(lib_fwd, 10), "F.ctc_loss forward"),
+                   "beta": (_cuda_ms(lib_fwd_bwd, 10),
+                            "F.ctc_loss forward + backward")}
+        b, t, s = inp["lp_e"].shape
+        for which in ("alpha", "beta"):
+            out[f"ctc_{which}"][case] = dict(
+                ms=_cuda_ms(lambda: _ctc_kernel(which, inp, buf), 20),
+                plain_ms=_cuda_ms(refs[which], 2),
+                bound_ms=ctc_bound_ms(inp, which), bound_by="bytes",
+                library_ms=library[which][0], library_call=library[which][1],
+                shape=f"B={b} T={t} S={s}",
+            )
+        del inp, lib, buf, lp_g
     return out
 
 
@@ -1502,14 +1591,13 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/ctc_alpha_beta.cu",
          "replaces": f"eesen_tpu/ops/ctc_pallas.py:{line}",
          "launches": tl[f"ctc_{w}"], "path": train_path,
+         "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
          "max_abs_err": state["ctc"]["max_abs_err"][w],
-         "ms": timing[f"ctc_{w}"]["S201"]["ms"],
-         "plain_ms": timing[f"ctc_{w}"]["S201"]["plain_ms"],
-         "bound_ms": timing[f"ctc_{w}"]["S201"]["bound_ms"],
-         "bound_by": "bytes",
-         "library_ms": timing[f"ctc_{w}"]["S201"]["library_ms"],
-         "library_call": timing[f"ctc_{w}"]["S201"]["library_call"],
-         "shape": "B=128 T=768 S=201"}
+         **{k: timing[f"ctc_{w}"]["S201"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "library_call", "shape")},
+         "S401": timing[f"ctc_{w}"]["S401"],
+         "S1201": timing[f"ctc_{w}"]["S1201"]}
         for w, line in (("alpha", 62), ("beta", 88))
     ]
     return {"kernels": [
@@ -1540,6 +1628,8 @@ def kernels_report(state, timing):
          "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
          "library_ms": None,
          "shape": "B=128 T=768 D=640 H=320 bf16, state_bf16",
+         "rec_ms": bt["rec_ms"], "rec_us_per_step": bt["rec_us_per_step"],
+         "products_ms": bt["products_ms"], "clusters": bt["clusters"],
          "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
          "h640": h640["lstm_bwd"]},
         *scan_rows,

@@ -9,7 +9,8 @@
 // the smallest (score, lane) of the live lanes with its dst.  The K output
 // slots hold the live lanes in ascending (score, lane) order, then every
 // other lane of the padded row in ascending lane order (state -1, score
-// +inf), cut at K; kept = lane clamped to m-1.  The plain version
+// +inf), cut at K; kept = lane clamped to m-1.  A NaN score makes the row
+// minimum, and so the threshold, NaN: no lane is live.  The plain version
 // `dedup_prune_ref` in ops/beam_cuda.py gives the same three outputs bit for
 // bit.
 //
@@ -66,6 +67,12 @@ __device__ __forceinline__ unsigned ord_bits(float f) {
 }
 __device__ __forceinline__ float from_ord(unsigned o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// The minimum with NaN kept, as torch.min and jnp.min take it (fminf drops
+// a NaN): a row with a NaN score gets a NaN threshold, so no lane is live.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return isnan(a) || isnan(b) ? CUDART_NAN_F : fminf(a, b);
 }
 
 // Exclusive prefix sum of v over the block's threads in thread order;
@@ -181,20 +188,20 @@ __global__ void __launch_bounds__(THREADS)
       s[a] = score[base + gl] + 0.0f;  // -0.0 -> +0.0, as the plain version
       d[a] = dst[base + gl];
     }
-    best = fminf(best, s[a]);
+    best = nan_min(best, s[a]);
   }
-  // 1. the row minimum
-  for (int o = 16; o > 0; o >>= 1) best = fminf(best, __shfl_xor_sync(FULL, best, o));
+  // 1. the row minimum (NaN if any score is NaN)
+  for (int o = 16; o > 0; o >>= 1) best = nan_min(best, __shfl_xor_sync(FULL, best, o));
   if (lane == 0) wmin[tid >> 5] = best;
   __syncthreads();
   if (tid < 32) {
     float v = tid < THREADS / 32 ? wmin[tid] : CUDART_INF_F;
-    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+    for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(FULL, v, o));
     if (tid == 0) cta_min = v;
   }
   cl.sync();  // B1: tables initialised, CTA minima written
   float rmin = CUDART_INF_F;
-  for (int r = 0; r < CLUSTER; ++r) rmin = fminf(rmin, *cl.map_shared_rank(&cta_min, r));
+  for (int r = 0; r < CLUSTER; ++r) rmin = nan_min(rmin, *cl.map_shared_rank(&cta_min, r));
   const float thr = rmin + beam;
 
   // 2. recombination: every lane within the beam lowers its dst's score,

@@ -17,20 +17,37 @@
 // Layout: x [T,B,D], gates [T,B,4H] and W_x [D,4H] in the compute type
 // (bf16 or f32); mask [T,B] f32; the c and m carries and gm (the cotangent
 // of the m carry) [T,B,H] in the state type (bf16 under state_bf16, else
-// f32); W_m^T [4H,H] in the compute type, made contiguous by the caller;
-// ph [3,H] f32.  Outputs: dx [T,B,D] compute type; dW_x [D,4H], dW_m [H,4H]
-// and db|dph [7H] f32.  Scratch from the caller: dgifo [T,B,4H] (compute
-// type), per-row partial sums [B,7H] and split-K partials of dW_x and dW_m.
+// f32); ph [3,H] f32; `wsl`, the CTAs' slices of W_m laid out by the caller
+// (ops/lstm_cuda.bwd_weight_slices): CTA q's columns g*H + q*U + u of W_m,
+// zero for units past H, as [C][Hp][SW] 32-bit words of bf16 pairs (row
+// u' of W_m, its 4U columns j = g*U + u, SW = 2U+4, Hp = H rounded up to 8)
+// on the bf16 path, as [C][4U][H] floats (column j, then u') on the f32
+// path.  Outputs: dx [T,B,D] compute type; dW_x [D,4H], dW_m [H,4H] and
+// db|dph [7H] f32.  Scratch from the caller: dgifo [T,B,4H] (compute type),
+// per-row partial sums [B,7H] and split-K partials of dW_x and dW_m.
 //
 // Design.  On the TPU one sequential grid carries dm/dc and accumulates dW in
-// VMEM; here blocks run in parallel and nothing carries between them, so the
-// work is split in two:
-//   (a) lstm_bwd_rec_kernel: one block per RB batch rows and a loop over t
-//       from T-1 down to 0, shaped like the forward kernel.  Thread (s, h)
-//       sums a 1/S slice of the 4H gate rows of W_m^T for unit h (reads
-//       coalesced across h); the partial sums meet in shared memory, and the
-//       next step's elementwise phase adds them to the dm carry.  It writes
-//       dgifo and, per batch row, the partial sums of db and dph.
+// VMEM while W_m stays resident; here the work is split in two:
+//   (a) lstm_bwd_rec_kernel, the reverse recurrence on thread-block
+//       clusters of C CTAs (8, or 16 with the non-portable size), shaped as
+//       kernel 1's recurrence (csrc/lstm_fwd.cu).  A cluster owns `rows`
+//       batch rows; CTA q owns hidden units [q*U, (q+1)*U) with all four of
+//       their gate columns, so the elementwise phase (dm_total, dc, the gate
+//       gradients, the db/dph sums) stays local; the dc and dm carries and
+//       the sums of its (row, unit) elements live in registers.  At the start
+//       each CTA copies its slice of W_m (the first `kres` of its H rows u',
+//       as many as fit) into shared memory and keeps it there; the rest is
+//       read from L2 every step.  Each step from T-1 down to 0: the
+//       elementwise phase, reading dm_{t} as the sum of the C partials in
+//       its receive buffer in the fixed order q = 0..C-1 (no atomics: the
+//       same inputs give the same bits); then (t > 0) the CTA's partial
+//       dgifo_q[rows, 4U] . W_m[:, its 4U columns]^T -> [rows, H] (bf16:
+//       mma.sync m16n8k16, bf16 in, f32 sums, padded rows so that the
+//       fragment loads hit 32 banks; f32: FMA), whose U-wide chunk for CTA p
+//       is written into p's receive buffer, slot q, through distributed
+//       shared memory (a reduce-scatter; double-buffered receive slots); one
+//       cluster barrier ends the step.  It writes dgifo and, per batch row,
+//       the partial sums of db and dph.
 //   (b) the products dW_x, dW_m and dx as tiled kernels over 64x64 output
 //       tiles (csrc/gemm_tile.cuh, shared with the forward kernel's input
 //       projection): gemm_tc_kernel on the tensor cores (wmma bf16 16x16x16
@@ -39,107 +56,338 @@
 //       are split over k into partial buffers; sum_rows_kernel then adds the
 //       partials in a fixed order, so the result is deterministic.
 //
-// Bound.  At B=128, T=768, H=320 the products are 2*B*T*(2D+H)*4H FLOP: 0.42
-// TFLOP at D=640 (0.42 ms at the 989 TFLOP/s bf16 tensor-core rate) and
-// 0.14 TFLOP at D=120; dgifo.W_m^T adds 2*B*T*4H*H.  The recurrence (a) is
-// bound by its T-step serial chain, each step streaming W_m^T (800 KiB in
-// bf16) from L2 into each block's SM.  The tensor-core products stage their
-// tiles through registers one element a thread with no copy/compute overlap
-// (TMA and wgmma pipelines are the next step).
+// Bound.  At B=128, T=768, H=640, D=1280 the work is 4*B*T*(D+H)*4H FLOP
+// over the valid steps, ~1.9 ms at 989 TFLOP/s (bf16).  The recurrence (a)
+// is bound by its T-step serial chain: per step the residuals' loads, one
+// partial product of 2*rows*4U*H FLOP a CTA, the DSMEM reduce-scatter
+// (rows*H*4 bytes out of each CTA) and one cluster barrier.  The products
+// stage their tiles through registers one element a thread with no
+// copy/compute overlap (TMA and wgmma pipelines are the next step).
+
+#include <cooperative_groups.h>
+#include <stdint.h>
 
 #include "gemm_tile.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// (a) the reverse recurrence; at most 64 registers a thread (1024 threads)
-template <typename TIn, typename TState, int RB>
-__global__ void __launch_bounds__(1024)
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int EPT = 4;  // (row, unit) elements a thread carries: rows*U <= EPT*THREADS
+constexpr int KCH = 4;  // k-steps of W_m fragments loaded at once
+constexpr unsigned FULL = 0xffffffffu;
+
+// 32-bit words per row of the operand tile (and of the bf16 W_m slice): 4U
+// bf16 values plus 4 words of padding (SW = 4 mod 8: the 8 rows of an mma
+// fragment load land in 8 bank groups); 4U floats on the f32 path.
+__host__ __device__ inline int row_words(int U, bool bf16) { return bf16 ? 2 * U + 4 : 4 * U; }
+
+// H rounded up to whole 8-column mma tiles (the rows of the bf16 slices)
+__host__ __device__ inline int hpad8(int H) { return (H + 7) / 8 * 8; }
+
+// c[0..3] += A (16x16, row-major) . B (16x8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The step's partial dm on the tensor cores: P[r][u'] = sum over the CTA's
+// 4U columns j of op[r][j] W_m[u'][j].  A warp takes two 8-column tiles of
+// u' at a time and every row tile, so each operand fragment it loads feeds
+// two mma; fragments of slice rows past kres come from L2, KCH k-steps in
+// flight at once.  Each lane then holds 4 consecutive columns of one row
+// (a shuffle with its neighbour) and stores them as one float4 into the
+// receive buffer of the CTA that owns unit u', slot q.
+__device__ __forceinline__ void rec_product(cg::cluster_group& cluster, const uint32_t* op,
+                                            const uint32_t* ws, const uint32_t* __restrict__ wg,
+                                            float* recv, int H, int U, int rows, int nr,
+                                            int kres) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int SW = row_words(U, true);
+  const int nks = U / 4;  // 16-deep k-steps over the 4U columns
+  const int mtiles = (nr + 15) / 16;
+  const int q = (int)cluster.block_rank();
+  const int ntiles = (H + 7) / 8;
+  for (int t0 = warp * 2; t0 < ntiles; t0 += WARPS * 2) {
+    const int nt = min(2, ntiles - t0);
+    float acc[2][2][4];  // [column tile][row tile]
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.0f;
+    const uint32_t* wr[2];  // this lane's slice row of each tile, in smem or L2
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n0 = (t0 + min(j, nt - 1)) * 8;
+      wr[j] = (n0 < kres ? ws + (n0 + gq) * SW : wg + (size_t)(n0 + gq) * SW) + tq;
+    }
+    for (int k0 = 0; k0 < nks; k0 += KCH) {
+      uint32_t b[KCH][2][2];
+#pragma unroll
+      for (int i = 0; i < KCH; ++i)
+        if (k0 + i < nks)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            b[i][j][0] = wr[j][(k0 + i) * 8];
+            b[i][j][1] = wr[j][(k0 + i) * 8 + 4];
+          }
+#pragma unroll
+      for (int i = 0; i < KCH; ++i) {
+        if (k0 + i < nks) {
+          const int kw = (k0 + i) * 8 + tq;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (mt < mtiles) {
+              const uint32_t* ar = op + (mt * 16 + gq) * SW + kw;
+              const uint32_t a[4] = {ar[0], ar[8 * SW], ar[4], ar[8 * SW + 4]};
+              mma_bf16(acc[0][mt], a, b[i][0]);
+              if (nt > 1) mma_bf16(acc[1][mt], a, b[i][1]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j < nt) {
+        const int cb = (t0 + j) * 8 + 4 * (tq >> 1);  // this lane's 4 columns
+        const int p = cb < H ? cb / U : 0;
+        float* dst = cluster.map_shared_rank(recv, p) + (size_t)q * rows * U + (cb - p * U);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < mtiles) {
+            float* c = acc[j][mt];
+            const bool odd = tq & 1;
+            const float s0 = __shfl_xor_sync(FULL, odd ? c[0] : c[2], 1);
+            const float s1 = __shfl_xor_sync(FULL, odd ? c[1] : c[3], 1);
+            const int r = mt * 16 + gq + (odd ? 8 : 0);
+            const float4 v =
+                odd ? make_float4(s0, s1, c[2], c[3]) : make_float4(c[0], c[1], s0, s1);
+            if (cb < H && r < nr) *reinterpret_cast<float4*>(dst + r * U) = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+// the same product on the FMA units (f32 path): a thread per column u' and
+// four rows; slice columns u' past kres come from L2
+__device__ __forceinline__ void rec_product(cg::cluster_group& cluster, const float* op,
+                                            const float* ws, const float* __restrict__ wg,
+                                            float* recv, int H, int U, int rows, int nr,
+                                            int kres) {
+  const int K4 = 4 * U;
+  const int q = (int)cluster.block_rank();
+  const int groups = (nr + 3) / 4;
+  for (int item = threadIdx.x; item < H * groups; item += THREADS) {
+    const int up = item % H, r0 = (item / H) * 4;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* a = op + r0 * K4;
+    if (up < kres) {
+      for (int j = 0; j < K4; ++j) {
+        const float w = ws[j * kres + up];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += a[i * K4 + j] * w;
+      }
+    } else {
+      for (int j = 0; j < K4; ++j) {
+        const float w = __ldg(wg + (size_t)j * H + up);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] += a[i * K4 + j] * w;
+      }
+    }
+    const int p = up / U;
+    float* dst = cluster.map_shared_rank(recv, p) + ((size_t)q * rows + r0) * U + (up - p * U);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r0 + i < nr) dst[i * U] = acc[i];
+  }
+}
+
+template <typename TIn, typename TState>
+__global__ void __launch_bounds__(THREADS)
     lstm_bwd_rec_kernel(const float* __restrict__ mask, const TIn* __restrict__ gates,
                         const TState* __restrict__ c, const TState* __restrict__ gm,
-                        const TIn* __restrict__ wmT, const float* __restrict__ ph,
+                        const void* __restrict__ wsl, const float* __restrict__ ph,
                         TIn* __restrict__ dgifo, float* __restrict__ part_rows, int T, int B,
-                        int H, int S) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int H7 = 7 * H;
-  float* dg = smem;              // [RB][G] this step's dgifo, rounded to TIn
-  float* dmp = dg + RB * G;      // [RB][H] dm passed through padded steps
-  float* dcs = dmp + RB * H;     // [RB][H] dc carry
-  float* acc = dcs + RB * H;     // [RB][7H] sums of dgifo (4H) and dph terms (3H)
-  float* part = acc + RB * H7;   // [S][RB][H] split-K partials of dgifo.W_m^T
+                        int H, int U, int rows, int kres) {
+  constexpr bool BF16 = std::is_same<TIn, __nv_bfloat16>::value;
+  using W = typename std::conditional<BF16, uint32_t, float>::type;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int G = 4 * H, H7 = 7 * H;
+  const int SW = row_words(U, BF16);
+  const int slot = rows * U;                          // one partial's floats
+  float* recv = reinterpret_cast<float*>(smem_raw);   // [2][C][rows][U] partials of dm
+  W* op = reinterpret_cast<W*>(recv + 2 * C * slot);  // [rows][SW] dgifo_t, rounded
+  W* ws = op + rows * SW;                             // resident W_m slice
 
   const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int h = tid % H;
-  const int s = tid / H;
-  const int b0 = blockIdx.x * RB;
-  const int nr = min(RB, B - b0);
-  const int chunk = (G + S - 1) / S;
-  const int k0 = s * chunk;
-  const int k1 = min(G, k0 + chunk);
+  const int b0 = (blockIdx.x / C) * rows;
+  const int nr = min(rows, B - b0);
+  const int u0 = q * U;
+  const int nu = max(0, min(U, H - u0));
+  const int ne = nr * nu;
 
-  for (int e = tid; e < RB * (G + 9 * H + S * H); e += nthr) smem[e] = 0.0f;
-  __syncthreads();
+  // this CTA's slice of W_m in global memory; its first kres rows u'
+  // (bf16, [kres][SW] words) or columns u' (f32, [4U][kres]) into ws
+  const W* wg;
+  if constexpr (BF16) {
+    wg = static_cast<const W*>(wsl) + (size_t)q * hpad8(H) * SW;
+    const uint4* src = reinterpret_cast<const uint4*>(wg);
+    uint4* dst = reinterpret_cast<uint4*>(ws);
+    for (int e = tid; e < kres * SW / 4; e += THREADS) dst[e] = src[e];
+  } else {
+    wg = static_cast<const W*>(wsl) + (size_t)q * 4 * U * H;
+    for (int e = tid; e < 4 * U * kres; e += THREADS) {
+      const int j = e / kres, up = e % kres;
+      ws[e] = wg[(size_t)j * H + up];
+    }
+  }
+  for (int e = tid; e < rows * SW; e += THREADS) op[e] = 0;
+  cluster.sync();  // every CTA is running before any remote write
+
+  float dc[EPT], dmp[EPT], acc[EPT][7];
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    dc[i] = 0.0f;
+    dmp[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) acc[i][k] = 0.0f;
+  }
 
   for (int t = T - 1; t >= 0; --t) {
-    for (int e = tid; e < nr * H; e += nthr) {
-      const int r = e / H, u = e % H;
-      const size_t row = (size_t)t * B + b0 + r;
-      float dm_in = 0.0f;
-      for (int q = 0; q < S; ++q) dm_in += part[((size_t)q * RB + r) * H + u];
-      const float dm_total = to_f(gm[row * H + u]) + (dm_in + dmp[r * H + u]);
-      const TIn* gp = gates + row * G;
-      const float gg = to_f(gp[u]), ig = to_f(gp[H + u]);
-      const float fg = to_f(gp[2 * H + u]), og = to_f(gp[3 * H + u]);
-      const float c_prev = t > 0 ? to_f(c[(row - B) * H + u]) : 0.0f;
-      const float c_raw = fg * c_prev + ig * gg;
-      const float mt = mask[row];
-      const float tanh_c = tanhf(c_raw);
+    const float* rin = recv + (t & 1) * C * slot;
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ne) {
+        const int r = e / nu, u = e % nu, hu = u0 + u;
+        const size_t row = (size_t)t * B + b0 + r;
+        // dm_t: the C partials of the step above, in the order q = 0..C-1
+        float dm_in = 0.0f;
+        if (t + 1 < T)
+          for (int p = 0; p < C; ++p) dm_in += rin[p * slot + r * U + u];
+        const float dm_total = to_f(gm[row * H + hu]) + (dm_in + dmp[i]);
+        const TIn* gp = gates + row * G + hu;
+        const float gg = to_f(gp[0]), ig = to_f(gp[H]);
+        const float fg = to_f(gp[2 * H]), og = to_f(gp[3 * H]);
+        const float c_prev = t > 0 ? to_f(c[(row - B) * H + hu]) : 0.0f;
+        const float c_raw = fg * c_prev + ig * gg;
+        const float mt = mask[row];
+        const float tanh_c = tanhf(c_raw);
 
-      const float dm_raw = dm_total * mt;
-      const float dc_in = dcs[r * H + u];
-      float dc_raw = dc_in * mt;
-      const float do_ = dm_raw * tanh_c;
-      dc_raw = dc_raw + dm_raw * og * (1.0f - tanh_c * tanh_c);
-      const float do_pre = do_ * og * (1.0f - og);
-      dc_raw = dc_raw + do_pre * ph[2 * H + u];
-      const float di_pre = dc_raw * gg * ig * (1.0f - ig);
-      const float df_pre = dc_raw * c_prev * fg * (1.0f - fg);
-      const float dg_pre = dc_raw * ig * (1.0f - gg * gg);
-      dcs[r * H + u] =
-          dc_raw * fg + di_pre * ph[u] + df_pre * ph[H + u] + dc_in * (1.0f - mt);
-      dmp[r * H + u] = dm_total * (1.0f - mt);
+        const float dm_raw = dm_total * mt;
+        const float dc_in = dc[i];
+        float dc_raw = dc_in * mt;
+        const float do_ = dm_raw * tanh_c;
+        dc_raw = dc_raw + dm_raw * og * (1.0f - tanh_c * tanh_c);
+        const float do_pre = do_ * og * (1.0f - og);
+        dc_raw = dc_raw + do_pre * ph[2 * H + hu];
+        const float di_pre = dc_raw * gg * ig * (1.0f - ig);
+        const float df_pre = dc_raw * c_prev * fg * (1.0f - fg);
+        const float dg_pre = dc_raw * ig * (1.0f - gg * gg);
+        dc[i] = dc_raw * fg + di_pre * ph[hu] + df_pre * ph[H + hu] + dc_in * (1.0f - mt);
+        dmp[i] = dm_total * (1.0f - mt);
 
-      const float d4[4] = {dg_pre, di_pre, df_pre, do_pre};
-      float* a = acc + r * H7;
+        const float d4[4] = {dg_pre, di_pre, df_pre, do_pre};
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const TIn v = from_f<TIn>(d4[g]);
-        dgifo[row * G + g * H + u] = v;
-        dg[r * G + g * H + u] = to_f(v);
-        a[g * H + u] += d4[g];
+        for (int g = 0; g < 4; ++g) {
+          const TIn v = from_f<TIn>(d4[g]);
+          dgifo[row * G + g * H + hu] = v;
+          if constexpr (BF16) {
+            reinterpret_cast<__nv_bfloat16*>(op)[2 * r * SW + g * U + u] = v;
+          } else {
+            op[r * SW + g * U + u] = v;
+          }
+          acc[i][g] += d4[g];
+        }
+        acc[i][4] += di_pre * c_prev;
+        acc[i][5] += df_pre * c_prev;
+        acc[i][6] += do_pre * c_raw;
       }
-      a[4 * H + u] += di_pre * c_prev;
-      a[5 * H + u] += df_pre * c_prev;
-      a[6 * H + u] += do_pre * c_raw;
     }
-    __syncthreads();
-    if (t > 0) {
-      // this step's share of dm_{t-1}: dgifo_t . W_m^T over gate rows [k0, k1)
-      float sum[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) sum[r] = 0.0f;
-      for (int k = k0; k < k1; ++k) {
-        const float w = to_f(wmT[(size_t)k * H + h]);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) sum[r] += dg[r * G + k] * w;
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) part[((size_t)s * RB + r) * H + h] = sum[r];
-    }
-    __syncthreads();
+    if (t == 0) break;  // no step below: nothing more crosses the cluster
+    __syncthreads();    // the operand is complete
+    // dm_{t-1}'s partial from this CTA's columns, into slot q of every CTA
+    rec_product(cluster, op, ws, wg, recv + ((t - 1) & 1) * C * slot, H, U, rows, nr, kres);
+    cluster.sync();     // every partial has landed; the operand is free
   }
-  for (int e = tid; e < nr * H7; e += nthr) part_rows[(size_t)b0 * H7 + e] = acc[e];
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const int e = tid + i * THREADS;
+    if (e < ne) {
+      float* pr = part_rows + (size_t)(b0 + e / nu) * H7 + u0 + e % nu;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) pr[k * H] = acc[i][k];
+    }
+  }
+}
+
+// Shared memory of lstm_bwd_rec_kernel, in bytes (mirrored by
+// ops/lstm_cuda.py bwd_smem_bytes): double-buffered receive slots
+// 2 x C x [rows][U] f32, the operand [rows][SW] and kres rows of SW
+// words (bf16) or [4U][kres] floats (f32) of the W_m slice.
+long long rec_smem_bytes(int cluster, int rows, int units, int kres, bool bf16) {
+  return 4LL * (2LL * cluster * rows * units + (long long)(rows + kres) * row_words(units, bf16));
+}
+
+template <typename TIn, typename TState>
+cudaError_t rec_config(int B, int H, int cluster, int rows, int units, int kres,
+                       cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const bool bf16 = std::is_same<TIn, __nv_bfloat16>::value;
+  // the shapes the kernel takes: whole mma row tiles (at most two) and
+  // k-steps, whole 8-column tiles of resident rows on the bf16 path, every
+  // unit owned, each thread at most EPT elements
+  if (cluster < 1 || cluster > 16 || rows < 4 || rows % (bf16 ? 16 : 4) != 0 ||
+      (bf16 && (rows > 32 || units % 4 != 0 || kres % 8 != 0 || kres > hpad8(H))) ||
+      kres < 0 || (!bf16 && kres > H) || (long long)units * cluster < H ||
+      rows * units > EPT * THREADS)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)rec_smem_bytes(cluster, rows, units, kres, bf16);
+  auto kern = lstm_bwd_rec_kernel<TIn, TState>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster * ((B + rows - 1) / rows));
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of this shape the card holds at once; 0 means one
+// cluster cannot be resident.
+template <typename TIn, typename TState>
+cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kres,
+                         cudaStream_t st, int* active) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(active, lstm_bwd_rec_kernel<TIn, TState>, &cfg);
 }
 
 // out[i] = sum over p < P of in[p*N + i], in order of p
@@ -158,36 +406,30 @@ cudaError_t sum_rows(const void* in, void* out, int P, long long N, cudaStream_t
   return cudaGetLastError();
 }
 
-template <typename TIn, typename TState, int RB>
-cudaError_t launch_rec(const void* mask, const void* gates, const void* c, const void* gm,
-                       const void* wmT, const void* ph, void* dgifo, void* part_rows, int T,
-                       int B, int H, int S, size_t smem, cudaStream_t st) {
-  auto kern = lstm_bwd_rec_kernel<TIn, TState, RB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<(B + RB - 1) / RB, S * H, smem, st>>>(
-      static_cast<const float*>(mask), static_cast<const TIn*>(gates),
-      static_cast<const TState*>(c), static_cast<const TState*>(gm),
-      static_cast<const TIn*>(wmT), static_cast<const float*>(ph), static_cast<TIn*>(dgifo),
-      static_cast<float*>(part_rows), T, B, H, S);
-  return cudaGetLastError();
-}
-
 template <typename TIn, typename TState>
 cudaError_t run(const void* x, const void* mask, const void* gates, const void* c, const void* m,
-                const void* gm, const void* wx, const void* wmT, const void* ph, void* dx,
+                const void* gm, const void* wx, const void* wsl, const void* ph, void* dx,
                 void* dwx, void* dwm, void* dbph, void* dgifo, void* part_rows, void* part_wx,
-                void* part_wm, int T, int B, int D, int H, int rb, int S, int zx, int zm,
-                size_t smem, cudaStream_t st) {
+                void* part_wm, int T, int B, int D, int H, int cluster, int rows, int units,
+                int kres, int zx, int zm, cudaStream_t st) {
   const int G = 4 * H;
   const long long TB = (long long)T * B;
-  cudaError_t err =
-      rb == 2 ? launch_rec<TIn, TState, 2>(mask, gates, c, gm, wmT, ph, dgifo, part_rows, T, B,
-                                           H, S, smem, st)
-              : launch_rec<TIn, TState, 1>(mask, gates, c, gm, wmT, ph, dgifo, part_rows, T, B,
-                                           H, S, smem, st);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, lstm_bwd_rec_kernel<TIn, TState>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (active < 1) return cudaErrorInvalidConfiguration;
+  // (a) the reverse recurrence
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_rec_kernel<TIn, TState>,
+                           static_cast<const float*>(mask), static_cast<const TIn*>(gates),
+                           static_cast<const TState*>(c), static_cast<const TState*>(gm), wsl,
+                           static_cast<const float*>(ph), static_cast<TIn*>(dgifo),
+                           static_cast<float*>(part_rows), T, B, H, units, rows, kres);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = sum_rows(part_rows, dbph, B, 7LL * H, st)) != cudaSuccess) return err;
   // dW_x = x^T . dgifo: A(d, tb) = x[tb*D + d], B(tb, g) = dgifo[tb*G + g]
   err = gemm<TIn, TIn, float, TIn, true, true>(x, 1, D, dgifo, G, 1, part_wx, nullptr, D, G,
@@ -208,35 +450,48 @@ cudaError_t run(const void* x, const void* mask, const void* gates, const void* 
 
 }  // namespace
 
-// Shared memory the recurrence kernel needs for these sizes, in bytes.
-extern "C" long long lstm_bwd_smem_bytes(int H, int rows_per_block, int split) {
-  return 4LL * rows_per_block * ((long long)13 * H + (long long)split * H);
+// Shared memory of the recurrence kernel for these sizes, in bytes.
+extern "C" long long lstm_bwd_smem_bytes(int cluster, int rows, int units, int kres,
+                                         int in_bf16) {
+  return rec_smem_bytes(cluster, rows, units, kres, in_bf16 != 0);
 }
 
-// Runs the backward pass of one LSTM direction on `stream` (the recurrence,
-// the per-row sums, the three products and the partial sums, in order);
-// returns the first cudaGetLastError() that is not cudaSuccess.  in_bf16:
-// x/gates/W_x/W_m^T/dx/dgifo are bf16 (else f32); state_bf16: c/m/gm are
-// bf16.  split*H <= 1024, rows_per_block in {1,2}; zx, zm: k-slices of the
-// dW_x and dW_m products (part_wx holds zx*D*4H floats, part_wm zm*H*4H).
+// cudaOccupancyMaxActiveClusters for the recurrence kernel at this shape
+// (state type f32), or minus the CUDA error.
+extern "C" int lstm_bwd_max_clusters(int B, int H, int cluster, int rows, int units, int kres,
+                                     int in_bf16) {
+  int active = 0;
+  const cudaError_t err =
+      in_bf16 ? max_clusters<__nv_bfloat16, float>(B, H, cluster, rows, units, kres, 0, &active)
+              : max_clusters<float, float>(B, H, cluster, rows, units, kres, 0, &active);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
+// Runs the backward pass of one LSTM direction on `stream` (the recurrence
+// on clusters of `cluster` CTAs, each cluster `rows` batch rows, each CTA
+// `units` hidden units with `kres` rows of its W_m slice resident; then the
+// per-row sums, the three products and the partial sums, in order); returns
+// the first CUDA error (cudaErrorInvalidConfiguration when not even one
+// cluster can be resident).  in_bf16: x/gates/W_x/dx/dgifo are bf16 and
+// wsl is the bf16 slice layout (else f32); state_bf16: c/m/gm are bf16.
+// zx, zm: k-slices of the dW_x and dW_m products (part_wx holds zx*D*4H
+// floats, part_wm zm*H*4H).
 extern "C" int lstm_bwd(const void* x, const void* mask, const void* gates, const void* c,
-                        const void* m, const void* gm, const void* wx, const void* wmT,
+                        const void* m, const void* gm, const void* wx, const void* wsl,
                         const void* ph, void* dx, void* dwx, void* dwm, void* dbph, void* dgifo,
                         void* part_rows, void* part_wx, void* part_wm, int T, int B, int D,
-                        int H, int in_bf16, int state_bf16, int rows_per_block, int split,
-                        int zx, int zm, void* stream) {
-  const size_t smem = (size_t)lstm_bwd_smem_bytes(H, rows_per_block, split);
+                        int H, int in_bf16, int state_bf16, int cluster, int rows, int units,
+                        int kres, int zx, int zm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows_per_block != 1 && rows_per_block != 2) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (in_bf16) {
     err = state_bf16
-              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wmT, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, rows_per_block, split, zx, zm, smem, st)
-              : run<__nv_bfloat16, float>(x, mask, gates, c, m, gm, wx, wmT, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, rows_per_block, split, zx, zm, smem, st);
+              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
+              : run<__nv_bfloat16, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
   } else {
     err = state_bf16
-              ? run<float, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wmT, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, rows_per_block, split, zx, zm, smem, st)
-              : run<float, float>(x, mask, gates, c, m, gm, wx, wmT, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, rows_per_block, split, zx, zm, smem, st);
+              ? run<float, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
+              : run<float, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
   }
   return (int)err;
 }

@@ -132,10 +132,12 @@ def load() -> ctypes.CDLL:
         lib.lstm_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.lstm_fwd_max_clusters.argtypes = [_I] * 7
         lib.lstm_fwd_max_clusters.restype = _I
-        lib.lstm_bwd.argtypes = [_P] * 17 + [_I] * 10 + [_P]
+        lib.lstm_bwd.argtypes = [_P] * 17 + [_I] * 12 + [_P]
         lib.lstm_bwd.restype = _I
-        lib.lstm_bwd_smem_bytes.argtypes = [_I] * 3
+        lib.lstm_bwd_smem_bytes.argtypes = [_I] * 5
         lib.lstm_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.lstm_bwd_max_clusters.argtypes = [_I] * 7
+        lib.lstm_bwd_max_clusters.restype = _I
         for name in ("lstm_scan_fwd", "lstm_scan_bwd"):
             getattr(lib, name).argtypes = [_P] * 8 + [_I] * 5 + [_P]
             getattr(lib, name).restype = _I

@@ -10,7 +10,10 @@ alpha and beta [B, T, S] float32.  Alpha is frozen past a row's length;
 beta is the init row at t = len-1 and LOG_ZERO after it.
 
 `ctc_alpha_beta` is the wrapper: on a CUDA tensor it launches the two
-kernels (or raises), on a CPU tensor it runs `ctc_alpha_beta_ref`.
+kernels (or raises), on a CPU tensor it runs `ctc_alpha_beta_ref`.  The
+kernels take any number of states S whose two shared rows fit in a block
+(a thread owns ceil(S/1024) states, rounded up to a power of two), as the
+TPU wrapper takes any S.
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ from eesen_tpu_torch.utils.math import (
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 alpha_launches = 0
 beta_launches = 0
-
-# one thread per CTC state, so S = 2L+1 is capped by the block size
-MAX_STATES = 1024
 
 
 def ctc_alpha_ref(
@@ -100,10 +100,6 @@ def ctc_alpha_beta(
     if lp_e.device.type != "cuda":
         raise ValueError(f"ctc_alpha_beta: unsupported device {lp_e.device}")
     bsz, t_max, s = lp_e.shape
-    if s > MAX_STATES:
-        raise ValueError(
-            f"ctc_alpha_beta: {s} states exceed the kernel's {MAX_STATES}"
-        )
     for name, ten, shape in (("lp_e", lp_e, (bsz, t_max, s)),
                              ("can_skip_f", can_skip_f, (bsz, s)),
                              ("beta_init_row", beta_init_row, (bsz, s))):

@@ -22,13 +22,18 @@ residuals (c carry, gates) and whose backward is the backward kernel.
 Kernel 1 is two device kernels behind one call (one count in `launches`):
 the input projection of all T*B rows as one tiled product into a float32
 scratch, then the recurrence on thread-block clusters whose CTAs keep
-their slice of W_m in shared memory (`fwd_plan` sizes them).
+their slice of W_m in shared memory (`fwd_plan` sizes them).  Kernel 3
+(one count in `bwd_launches`) is its reverse recurrence on clusters of
+the same shape (`bwd_plan`; each CTA keeps its W_m slice, laid out by
+`bwd_weight_slices`, and the step's dm is reduce-scattered through
+distributed shared memory), then the per-row sums and the three tiled
+products.
 
 Which route a direction takes on the card: `fused_launch(B, D, H)` gives
-the launch parameters of kernels 1 and 3, or None where either cannot
-take the shape (kernel 3's 1024 threads, i.e. H > 1024, or more shared
-memory than a block has); then models/bilstm.py sends the direction to
-the v1 route (ops/lstm_v1_cuda.py, kernels 4 and 5).  This is the
+the launch parameters of kernels 1 and 3, or None where they do not take
+the shape (H above MAX_H = 1024, or more shared memory than a block
+has); then models/bilstm.py sends the direction to the v1 route
+(ops/lstm_v1_cuda.py, kernels 4 and 5, which take any H).  This is the
 counterpart of `fused_block_ts` (lstm_pallas.py:761-777), which asks
 the same question of the TPU's VMEM; speed plays no part in the choice.
 A direct call of these wrappers on a shape `fused_launch` refuses raises.
@@ -55,11 +60,19 @@ launches = 0
 bwd_launches = 0
 
 MAX_THREADS = 1024
+MAX_H = 1024                  # widest cell the fused route takes
 SMEM_LIMIT = 232448           # bytes of shared memory a block may use
-ROWS_PER_BLOCK = 2            # kernel 3: batch rows per block (1 or 2)
-FWD_CLUSTERS = (8, 16)        # kernel 1: CTAs per cluster, in order of choice
-FWD_ROWS = (16, 32)           # kernel 1: rows per cluster at B <= 16, else
-                              # (halved on the f32 path while they don't fit)
+CLUSTERS = (8, 16)            # kernels 1 and 3: CTAs per cluster, in order
+                              # of choice
+ROWS = (16, 32)               # rows per cluster: kernel 1 16 at B <= 16,
+                              # else 32 (halved on the f32 path while they
+                              # don't fit); kernel 3 16 while its clusters
+                              # fit in one wave, else 32
+BWD_WAVE_CTAS = 112           # CTAs of clusters the H100 holds at once
+                              # (cudaOccupancyMaxActiveClusters: 7 of 16,
+                              # 15 of 8 at these kernels' shared memory)
+BWD_THREADS = 512             # kernel 3: threads a CTA, and (row, unit)
+BWD_EPT = 4                   # elements each carries in registers
 
 
 def _scan(
@@ -112,11 +125,6 @@ def lstm_direction_ref(
     return m.to(sdt)
 
 
-def _split(h: int) -> int:
-    """Split-K factor of kernel 3's recurrence: threads per hidden unit."""
-    return max(1, min(4, MAX_THREADS // h))
-
-
 def fwd_kpad(h: int, bf16: bool) -> int:
     """Length of an operand row of kernel 1's recurrence: H rounded up to
     64 on the bf16 path (whole swizzle blocks), H on the f32 path."""
@@ -142,12 +150,6 @@ def fwd_smem_bytes(h: int, rows: int, units: int, kres: int,
             + 2 * rows * fwd_kpad(h, bf16) * s + kres * cols * s)
 
 
-def bwd_smem_bytes(h: int, rows: int, split: int) -> int:
-    """Shared memory of kernel 3's recurrence (csrc/lstm_bwd.cu
-    lstm_bwd_smem_bytes)."""
-    return 4 * rows * (13 * h + split * h)
-
-
 class FwdPlan(NamedTuple):
     cluster: int       # CTAs per cluster (8, or 16 non-portable)
     rows: int          # batch rows per cluster (a multiple of 16 on bf16)
@@ -165,9 +167,9 @@ def fwd_plan(b: int, h: int, bf16: bool = True) -> Optional[FwdPlan]:
     kp = fwd_kpad(h, bf16)
     step, min_rows = (64, 16) if bf16 else (1, 4)
     plan = None
-    for cluster in FWD_CLUSTERS:
+    for cluster in CLUSTERS:
         units = fwd_units(h, cluster)
-        rows = FWD_ROWS[0] if b <= FWD_ROWS[0] else FWD_ROWS[1]
+        rows = ROWS[0] if b <= ROWS[0] else ROWS[1]
         while (rows > min_rows
                and fwd_smem_bytes(h, rows, units, 0, bf16) > SMEM_LIMIT):
             rows //= 2
@@ -181,28 +183,112 @@ def fwd_plan(b: int, h: int, bf16: bool = True) -> Optional[FwdPlan]:
     return plan
 
 
+def bwd_units(h: int, cluster: int, bf16: bool) -> int:
+    """Hidden units per CTA of kernel 3's recurrence: on the bf16 path a
+    multiple of 4, so that its 4U gate columns are whole 16-deep mma
+    k-steps and its receive slots take float4 stores."""
+    u = -(-h // cluster)
+    return -(-u // 4) * 4 if bf16 else u
+
+
+def bwd_row_words(units: int, bf16: bool) -> int:
+    """32-bit words per row of kernel 3's operand tile and bf16 W_m slice:
+    4U bf16 values and 4 words of padding (rows 4 mod 8 words apart, so an
+    mma fragment load hits 32 banks); 4U floats on the f32 path."""
+    return 2 * units + 4 if bf16 else 4 * units
+
+
+def bwd_smem_bytes(cluster: int, rows: int, units: int, kres: int,
+                   bf16: bool) -> int:
+    """Shared memory of kernel 3's recurrence (csrc/lstm_bwd.cu
+    lstm_bwd_smem_bytes): the double-buffered receive slots 2 x C x
+    [rows, U] f32, the operand [rows] and the resident slice [kres] rows
+    of bwd_row_words (bf16; on f32 the slice is [4U, kres] floats, the
+    same count)."""
+    return 4 * (2 * cluster * rows * units
+                + (rows + kres) * bwd_row_words(units, bf16))
+
+
+class BwdPlan(NamedTuple):
+    cluster: int       # CTAs per cluster (8, or 16 non-portable)
+    rows: int          # batch rows per cluster (16 or 32 on bf16)
+    units: int         # hidden units per CTA
+    kres: int          # rows u' of the CTA's W_m slice kept resident
+
+
+def bwd_plan(b: int, h: int, bf16: bool = True) -> Optional[BwdPlan]:
+    """Cluster shape of kernel 3's recurrence, chosen as `fwd_plan`
+    chooses kernel 1's: the smaller cluster whose CTAs hold their whole
+    W_m slice beside the receive slots, else 16 CTAs with as many rows u'
+    resident as fit (whole 8-row mma tiles on bf16, up to H rounded to
+    8).  Rows per cluster: 16 while ceil(B/16) clusters fit in one wave
+    of BWD_WAVE_CTAS CTAs (a step's time grows with the rows a CTA
+    carries), else 32; halved while the receive slots do not fit or a
+    thread would carry more than BWD_EPT elements.  None when not even
+    that fits."""
+    full = -(-h // 8) * 8 if bf16 else h
+    step, min_rows = (8, 16) if bf16 else (1, 4)
+    plan = None
+    for cluster in CLUSTERS:
+        units = bwd_units(h, cluster, bf16)
+        one_wave = -(-b // ROWS[0]) * cluster <= BWD_WAVE_CTAS
+        rows = ROWS[0] if one_wave else ROWS[1]
+        while rows > min_rows and (
+                rows * units > BWD_THREADS * BWD_EPT
+                or bwd_smem_bytes(cluster, rows, units, 0, bf16) > SMEM_LIMIT):
+            rows //= 2
+        free = SMEM_LIMIT - bwd_smem_bytes(cluster, rows, units, 0, bf16)
+        if free < 0 or rows * units > BWD_THREADS * BWD_EPT:
+            continue
+        row_bytes = 4 * bwd_row_words(units, bf16)
+        plan = BwdPlan(cluster, rows, units,
+                       min(full, free // row_bytes // step * step))
+        if plan.kres == full:
+            break
+    return plan
+
+
+def bwd_weight_slices(w_m: torch.Tensor, plan: BwdPlan,
+                      bf16: bool) -> torch.Tensor:
+    """Each CTA's slice of W_m [H, 4H] as kernel 3's recurrence reads it:
+    CTA q's columns g*H + q*U + u (zero for units past H), as [C, Hp, 2*SW]
+    bf16 (row u', then column j = g*U + u, zero-padded to SW words and Hp =
+    H rounded up to 8 rows) on the bf16 path, as [C, 4U, H] (column j, then
+    u') on the f32 path."""
+    h = w_m.shape[0]
+    c, u = plan.cluster, plan.units
+    unit = torch.arange(c * u, device=w_m.device).view(c, 1, u)
+    cols = torch.arange(4, device=w_m.device).view(1, 4, 1) * h + \
+        unit.clamp(max=h - 1)
+    sl = torch.where(unit < h, w_m[:, cols], torch.zeros(
+        (), dtype=w_m.dtype, device=w_m.device))         # [H, C, 4, U]
+    if not bf16:
+        return sl.permute(1, 2, 3, 0).reshape(c, 4 * u, h).contiguous()
+    out = torch.zeros((c, -(-h // 8) * 8, 2 * bwd_row_words(u, True)),
+                      dtype=w_m.dtype, device=w_m.device)
+    out[:, :h, :4 * u] = sl.permute(1, 0, 2, 3).reshape(c, h, 4 * u)
+    return out
+
+
 class FusedLaunch(NamedTuple):
     fwd: FwdPlan       # kernel 1's recurrence
-    rows_bwd: int      # batch rows per block of kernel 3's recurrence
-    split: int         # threads that share one hidden unit there (split-K)
+    bwd: BwdPlan       # kernel 3's recurrence
 
 
 def fused_launch(b: int, d: int, h: int,
                  bf16: bool = True) -> Optional[FusedLaunch]:
     """Launch parameters of kernels 1 and 3 for a direction of batch b,
     input width d and cell width h (compute dtype bf16, else f32), or None
-    when either kernel cannot take the shape on the card: kernel 3's
-    split*h threads above 1024 (any h > 1024) or shared memory, or kernel
-    1's operand beyond a block's shared memory.  Host arithmetic only; the
-    input width plays no part (kernel 1's projection is a tiled product)."""
-    split = _split(h)
-    if split * h > MAX_THREADS:
+    when the fused route does not take the shape: h above MAX_H (those
+    go to the v1 route), or a plan beyond a block's shared memory.  Host
+    arithmetic only; the input width plays no part (the projections are
+    tiled products)."""
+    if h > MAX_H:
         return None
-    rows = min(ROWS_PER_BLOCK, max(b, 1))
-    fwd = fwd_plan(b, h, bf16)
-    if fwd is None or bwd_smem_bytes(h, rows, split) > SMEM_LIMIT:
+    fwd, bwd = fwd_plan(b, h, bf16), bwd_plan(b, h, bf16)
+    if fwd is None or bwd is None:
         return None
-    return FusedLaunch(fwd, rows, split)
+    return FusedLaunch(fwd, bwd)
 
 
 def _check(what: str, dev: torch.device, expect) -> None:
@@ -244,7 +330,7 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
     launch = fused_launch(b, d, h, bf16)
     if launch is None:
         raise ValueError(f"lstm_direction: D={d}, H={h} exceed the fused "
-                         f"kernel's threads or shared memory (v1 route)")
+                         f"kernels' width or shared memory (v1 route)")
     lib = build.load()
     sdt = torch.bfloat16 if state_bf16 else torch.float32
     m = torch.empty((t_max, b, h), dtype=sdt, device=x.device)
@@ -372,10 +458,11 @@ def lstm_direction_bwd(
         "w_m": (w_m, (h, 4 * h), cdt),
         "ph": (ph, (3, h), torch.float32),
     })
-    launch = fused_launch(b, d, h)
+    bf16 = cdt == torch.bfloat16
+    launch = fused_launch(b, d, h, bf16)
     if launch is None:
         raise ValueError(f"lstm_direction_bwd: D={d}, H={h} exceed the "
-                         f"fused kernels' threads or shared memory (v1 route)")
+                         f"fused kernels' width or shared memory (v1 route)")
     lib = build.load()
     dev = x.device
     f32 = torch.float32
@@ -396,17 +483,17 @@ def lstm_direction_bwd(
             wx=torch.empty((zx, d, 4 * h), dtype=f32, device=dev),
             wm=torch.empty((zm, h, 4 * h), dtype=f32, device=dev),
         )
-        wm_t = w_m.t().contiguous()          # [4H, H]: coalesced across h
+        p = launch.bwd
+        wsl = bwd_weight_slices(w_m, p, bf16)
         err = lib.lstm_bwd(
             x.data_ptr(), mask.data_ptr(), gates.data_ptr(), c.data_ptr(),
-            m.data_ptr(), gm.data_ptr(), w_x.data_ptr(), wm_t.data_ptr(),
+            m.data_ptr(), gm.data_ptr(), w_x.data_ptr(), wsl.data_ptr(),
             ph.data_ptr(), dx.data_ptr(), dw_x.data_ptr(), dw_m.data_ptr(),
             dbph.data_ptr(), scratch["dgifo"].data_ptr(),
             scratch["rows"].data_ptr(), scratch["wx"].data_ptr(),
-            scratch["wm"].data_ptr(), t_max, b, d, h,
-            int(cdt == torch.bfloat16), int(sdt == torch.bfloat16),
-            launch.rows_bwd, launch.split, zx, zm,
-            torch.cuda.current_stream(dev).cuda_stream,
+            scratch["wm"].data_ptr(), t_max, b, d, h, int(bf16),
+            int(sdt == torch.bfloat16), p.cluster, p.rows, p.units, p.kres,
+            zx, zm, torch.cuda.current_stream(dev).cuda_stream,
         )
         build.check(err, "lstm_bwd")
         bwd_launches += 1

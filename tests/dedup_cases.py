@@ -6,7 +6,7 @@ torch."""
 import numpy as np
 
 CASES = ("random", "signed_zero", "negative", "ties", "all_dead", "one_dst",
-         "few_live", "odd_dst")
+         "few_live", "odd_dst", "nan")
 
 
 def make_case(name: str, b: int, m: int, seed: int = 0):
@@ -22,6 +22,9 @@ def make_case(name: str, b: int, m: int, seed: int = 0):
     few_live     a handful of live lanes, the rest dead
     odd_dst      dst values at the int32 extremes (INT_MIN is the table's
                  empty tag) and the padding's dst
+    nan          odd rows all NaN; even rows one NaN among finite scores
+                 (and some dead lanes): the row minimum is NaN, so is the
+                 threshold, and the whole row comes out dead
     """
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, max(m // 3, 2), (b, m)).astype(np.int32)
@@ -46,6 +49,10 @@ def make_case(name: str, b: int, m: int, seed: int = 0):
         pick = rng.choice(np.array([-2**31, 2**31 - 1, -1, 0x3FFFFFFF],
                                    np.int64), (b, m))
         dst = np.where(rng.random((b, m)) < 0.5, pick, dst).astype(np.int32)
+    elif name == "nan":
+        score[rng.random((b, m)) < 0.1] = np.inf
+        score[1::2] = np.nan
+        score[np.arange(0, b, 2), rng.integers(0, m, (b + 1) // 2)] = np.nan
     else:
         raise ValueError(name)
     return dst, score

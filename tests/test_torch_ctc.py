@@ -180,3 +180,39 @@ def test_expand_labels_matches_jax():
         tctc.expand_labels(torch.from_numpy(labels)).numpy(),
         np.asarray(jctc.expand_labels(jnp.asarray(labels))),
     )
+
+
+def test_alpha_beta_past_1024_states_match_forward_backward():
+    """The function the card kernels now compute past 1024 states (a thread
+    owns several): ctc_cuda.ctc_alpha_beta (its plain version on the CPU)
+    at B=2, L=600 (S=1201), T=1300, against the JAX package's XLA
+    ctc_forward_backward.  Enough frames (1300 and 1250 for 600 and 590
+    labels with repeats) that every state is reached and the finite region
+    is real; the tolerance of assert_log_close."""
+    rng = np.random.default_rng(7)
+    t, l, v = 1300, 600, 30
+    logits = (rng.standard_normal((2, t, v)) * 2.0).astype(np.float32)
+    ll = np.array([t, 1250], np.int32)
+    lab_l = np.array([l, 590], np.int32)
+    labels = rng.integers(1, v, (2, l)).astype(np.int32)
+    labels[:, 1::9] = labels[:, 0::9][:, :labels[:, 1::9].shape[1]]
+    labels[1, lab_l[1]:] = 0
+    lp_e, skip_f, init, can_skip = prep(logits, ll, labels, lab_l)
+    assert lp_e.shape == (2, t, 2 * l + 1)
+    _, a_j, b_j = jctc.ctc_forward_backward(
+        jnp.asarray(lp_e), jnp.asarray(can_skip), jnp.asarray(ll),
+        jnp.asarray(lab_l),
+    )
+    a_t, b_t = ctc_cuda.ctc_alpha_beta(
+        torch.from_numpy(lp_e), torch.from_numpy(skip_f),
+        torch.from_numpy(init), torch.from_numpy(ll),
+    )
+    a_j, b_j = np.asarray(a_j), np.asarray(b_j)
+    # the last states are reached: alpha finite at the last frame's end
+    # states, beta finite at frame 0's first states
+    for i in range(2):
+        end = 2 * lab_l[i]
+        assert (a_j[i, ll[i] - 1, end - 1:end + 1] > LOG_ZERO_THRESHOLD).all()
+        assert (b_j[i, 0, :2] > LOG_ZERO_THRESHOLD).all()
+    assert_log_close(a_t.numpy(), a_j)
+    assert_log_close(b_t.numpy(), b_j)

@@ -167,8 +167,8 @@ def test_lstm_scan_kernels_match_plain(dev, h):
 
 
 def test_smem_formulas_match_the_library(dev):
-    """The host's shared-memory arithmetic (the route choice, kernel 1's
-    cluster plan, kernel 2's table) is the kernels' own."""
+    """The host's shared-memory arithmetic (the route choice, the cluster
+    plans of kernels 1 and 3, kernel 2's table) is the kernels' own."""
     lib = build.load()
     for b, h in ((8, 320), (128, 320), (8, 640), (128, 640), (20, 1024),
                  (3, 32)):
@@ -179,9 +179,10 @@ def test_smem_formulas_match_the_library(dev):
             assert got == lstm_cuda.fwd_smem_bytes(h, p.rows, p.units,
                                                    p.kres, bf16)
             assert got <= lstm_cuda.SMEM_LIMIT
-    for h, rb, s in ((320, 2, 3), (640, 1, 1), (32, 2, 4)):
-        assert lib.lstm_bwd_smem_bytes(h, rb, s) == \
-            lstm_cuda.bwd_smem_bytes(h, rb, s)
+            q = lstm_cuda.fused_launch(b, 64, h, bf16).bwd
+            got = lib.lstm_bwd_smem_bytes(*q, int(bf16))
+            assert got == lstm_cuda.bwd_smem_bytes(*q, bf16)
+            assert got <= lstm_cuda.SMEM_LIMIT
     for h, rb in ((640, 2), (1152, 1)):
         assert lib.lstm_scan_fwd_smem_bytes(h, rb) == \
             lstm_v1_cuda.fwd_smem_bytes(h, rb)
@@ -200,6 +201,21 @@ def test_lstm_clusters_are_co_resident(dev, b, h):
     active = build.load().lstm_fwd_max_clusters(b, h, p.cluster, p.rows,
                                                 p.units, p.kres, 1)
     assert active >= -(-b // p.rows)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("b,h", [(1, 320), (8, 320), (128, 320), (8, 640),
+                                 (20, 640), (128, 640), (8, 1024),
+                                 (128, 1024)])
+def test_lstm_bwd_plan_is_launchable(dev, b, h, bf16):
+    """Kernel 3's cluster plan (host arithmetic) against the library: its
+    shared memory is the kernel's own formula, and at least one cluster of
+    it is resident (the launch raises otherwise)."""
+    lib = build.load()
+    q = lstm_cuda.bwd_plan(b, h, bf16)
+    assert lib.lstm_bwd_smem_bytes(*q, int(bf16)) == \
+        lstm_cuda.bwd_smem_bytes(*q, bf16)
+    assert lib.lstm_bwd_max_clusters(b, h, *q, int(bf16)) >= 1
 
 
 def shape_args(dev, dtype, b, h, t=9, d=48, seed=0):
@@ -251,6 +267,79 @@ def test_lstm_kernel_shapes(dev, h, b, dtype):
                                            atol=atol, msg=f"{name} sb={sb}")
 
 
+def bwd_close(name, got, want, bf16):
+    """|got - want| <= atol * max(1, max|want|) + rtol * |want|: a weight
+    gradient sums T*B products, so the error of sums in another order
+    grows with its largest entry, not with each entry.  f32: rtol 1e-4 /
+    atol 1e-5.  bf16: the JAX fused-gradient tolerance, rtol 5e-2 and atol
+    5e-3 (2e-2 on dx, unscaled), and 1e-2 relative L2 (chip_smoke.py's
+    BWD_W_TOL, BWD_DX_TOL, BWD_REL_L2)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all(), name
+    rtol, atol = (5e-2, 5e-3) if bf16 else (1e-4, 1e-5)
+    scale = max(1.0, float(w.abs().max()))
+    if bf16 and name.startswith("dx"):
+        atol, scale = 2e-2, 1.0
+    err = (g - w).abs()
+    worst = float((err / (atol * scale + rtol * w.abs())).max())
+    assert worst <= 1.0, f"{name}: max abs err {float(err.max())}, " \
+        f"max|want| {float(w.abs().max())}, {worst} of the tolerance"
+    if bf16:
+        assert float((g - w).norm() / w.norm().clamp_min(1e-30)) <= 1e-2, \
+            name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 8, 20, 128])
+@pytest.mark.parametrize("h", [320, 640, 1024])
+def test_lstm_bwd_kernel_shapes(dev, h, b, dtype):
+    """Kernel 3 (cluster recurrence + products) against its plain version
+    at the cluster shapes it takes (8- and 16-CTA clusters, 16 and 32
+    rows, W_m slices wholly and partly resident), state_bf16 on and off,
+    with a length-0 row (b > 1), on kernel 1's residuals."""
+    args = shape_args(dev, dtype, b, h, seed=h + b)
+    gm = torch.from_numpy(np.random.default_rng(b).standard_normal(
+        (9, b, h)).astype(np.float32)).to(dev)
+    for sb in (False, True):
+        m, c, gates = lstm_cuda.lstm_direction(**args, state_bf16=sb,
+                                               with_residuals=True)
+        inp = dict(x=args["x"], mask=args["mask"], gates=gates, c=c, m=m,
+                   gm=gm.to(m.dtype), w_x=args["w_x"], w_m=args["w_m"],
+                   ph=args["ph"])
+        before = lstm_cuda.bwd_launches
+        got = lstm_cuda.lstm_direction_bwd(**inp)
+        want = lstm_cuda.lstm_direction_bwd_ref(**inp)
+        torch.cuda.synchronize()
+        assert lstm_cuda.bwd_launches == before + 1
+        for name, g, w in zip(("dx", "dw_x", "dw_m", "db", "dph"), got,
+                              want):
+            bwd_close(f"{name} sb={sb}", g, w, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,b,h", [(torch.bfloat16, 128, 640),
+                                       (torch.bfloat16, 8, 320),
+                                       (torch.float32, 20, 1024)])
+def test_lstm_bwd_kernel_is_deterministic(dev, dtype, b, h):
+    """The cluster sums its partials in a fixed order and uses no float
+    atomics: two runs on the same inputs give the same bits."""
+    args = shape_args(dev, dtype, b, h, t=17, seed=5)
+    m, c, gates = lstm_cuda.lstm_direction(**args, state_bf16=True,
+                                           with_residuals=True)
+    gm = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        m.shape).astype(np.float32)).to(dev, m.dtype)
+    inp = dict(x=args["x"], mask=args["mask"], gates=gates, c=c, m=m, gm=gm,
+               w_x=args["w_x"], w_m=args["w_m"], ph=args["ph"])
+    first = [g.clone() for g in lstm_cuda.lstm_direction_bwd(**inp)]
+    second = lstm_cuda.lstm_direction_bwd(**inp)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b2.view(torch.int16 if b2.dtype == torch.bfloat16
+                                   else torch.int32))
+
+
 def test_direction_above_1024_takes_the_v1_route(dev):
     """H=1152: the fused kernels refuse the shape (a direct call raises),
     `_direction_scan` runs kernels 4 and 5 instead and matches the CPU
@@ -291,6 +380,8 @@ def test_direction_above_1024_takes_the_v1_route(dev):
 
 
 def ctc_inputs(dev, b=6, t=40, v=9, l=8, seed=0):
+    """Six rows: full length, shorter, a short row, a length-0 row (frames
+    and labels), a row without labels and a one-frame row."""
     rng = np.random.default_rng(seed)
     logits = torch.from_numpy(rng.standard_normal((b, t, v)).astype(
         np.float32))
@@ -304,10 +395,9 @@ def ctc_inputs(dev, b=6, t=40, v=9, l=8, seed=0):
     return [x.to(dev).contiguous() for x in (lp_e, skip, init, ll)]
 
 
-def test_ctc_kernels_match_plain(dev):
-    """LOG_ZERO positions identical; elsewhere float32 log-space sums,
-    rtol 1e-5 / atol 1e-4."""
-    inp = ctc_inputs(dev)
+def check_ctc(inp):
+    """Kernels 6 and 7 against their plain versions: LOG_ZERO positions
+    identical; elsewhere float32 log-space sums, rtol 1e-5 / atol 1e-4."""
     before = (ctc_cuda.alpha_launches, ctc_cuda.beta_launches)
     got = ctc_cuda.ctc_alpha_beta(*inp)
     want = ctc_cuda.ctc_alpha_beta_ref(*inp)
@@ -321,14 +411,22 @@ def test_ctc_kernels_match_plain(dev):
     # the padded row: alpha is the t=0 init row, beta all LOG_ZERO
     assert torch.equal(got[0][3], got[0][3, :1].expand_as(got[0][3]))
     assert torch.all(got[1][3] == LOG_ZERO)
+    return got
 
 
-def test_ctc_kernels_refuse_too_many_states(dev):
-    s = ctc_cuda.MAX_STATES + 1
-    z = torch.zeros((1, 2, s), device=dev)
-    with pytest.raises(ValueError):
-        ctc_cuda.ctc_alpha_beta(z, z[:, 0], z[:, 0],
-                                torch.tensor([2], device=dev))
+def test_ctc_kernels_match_plain(dev):
+    check_ctc(ctc_inputs(dev))
+
+
+@pytest.mark.parametrize("l,t", [(600, 1300), (2000, 4200)])
+def test_ctc_kernels_past_1024_states(dev, l, t):
+    """S = 2L+1 = 1201 and 4001 states (a thread owns 2 and 4; the two
+    shared rows of S=4001 need more than 48 KB): mixed frame and label
+    lengths, a length-0 row; the full row reaches its last states."""
+    inp = ctc_inputs(dev, t=t, l=l, seed=l)
+    assert inp[0].shape[2] == 2 * l + 1
+    alpha, _ = check_ctc(inp)
+    assert bool((alpha[0, t - 1, 2 * l - 1:] > LOG_ZERO_THRESHOLD).all())
 
 
 @pytest.mark.parametrize("m,k", [(100, 64), (4096, 512), (14336, 512)])
@@ -353,8 +451,8 @@ def test_dedup_kernel_equals_plain(dev, m, k):
 def test_dedup_kernel_adversarial(dev, m, k):
     """The cluster kernel equals its plain version bit for bit on every
     adversarial case (-0.0/+0.0, negative scores, ties, every lane dead,
-    one dst, fewer live lanes than K, K = Mp, int32-extreme dst), with
-    launches counted."""
+    one dst, fewer live lanes than K, K = Mp, int32-extreme dst, NaN
+    scores), with launches counted."""
     for case in CASES:
         dst, score = make_case(case, 8, m, seed=m + k)
         dst_t = torch.from_numpy(dst).to(dev)
@@ -369,6 +467,25 @@ def test_dedup_kernel_adversarial(dev, m, k):
             assert torch.equal(g, w), f"{case}: {name}"
             if name == "scores":      # -0.0 is never written
                 assert torch.equal(torch.signbit(g), torch.signbit(w)), case
+
+
+@pytest.mark.parametrize("m", [100, 4096, 16384])
+def test_dedup_kernel_nan_rows(dev, m):
+    """A NaN score makes the row minimum NaN, as torch.min does: the whole
+    row comes out dead (state -1, score +inf, kept in lane order), bit for
+    bit as dedup_prune_ref, on rows that are all NaN and rows with one
+    NaN among finite scores."""
+    dst, score = make_case("nan", 8, m, seed=m)
+    dst_t = torch.from_numpy(dst).to(dev)
+    score_t = torch.from_numpy(score).to(dev)
+    got = beam_cuda.dedup_prune(dst_t, score_t, 64, 6.0)
+    want = beam_cuda.dedup_prune_ref(dst_t, score_t, 64, 6.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.all(got[0] == -1) and torch.all(torch.isinf(got[1]))
+    assert torch.equal(got[2][0], torch.arange(64, device=dev,
+                                               dtype=torch.int32))
 
 
 def test_dedup_kernel_refuses_wide_rows(dev):

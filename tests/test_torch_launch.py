@@ -1,10 +1,13 @@
 """Host arithmetic of the port's cluster kernels, on hand-computed cases:
-kernel 1's recurrence plan (ops/lstm_cuda.fwd_plan: CTAs per cluster, rows
-per cluster, units per CTA, resident rows of the W_m slice) and shared
-memory, and the route choice's accepted set.  The card tests hold the same
+the recurrence plans of kernels 1 and 3 (ops/lstm_cuda.fwd_plan and
+bwd_plan: CTAs per cluster, rows per cluster, units per CTA, resident rows
+of the W_m slice) and their shared memory, kernel 3's W_m slice layout,
+and the route choice's accepted set.  The card tests hold the same
 formulas equal to the library's exported ones."""
 
+import numpy as np
 import pytest
+import torch
 
 from eesen_tpu_torch.ops import lstm_cuda
 
@@ -77,3 +80,127 @@ def test_fused_launch_keeps_every_shape_it_took(b, h):
                 assert not bf16 or p.kres % 64 == 0
                 assert lstm_cuda.fwd_smem_bytes(
                     h, p.rows, p.units, p.kres, bf16) <= LIMIT
+                q = got.bwd
+                assert q.units * q.cluster >= h and q.rows * q.units <= 2048
+                assert q.rows % (16 if bf16 else 4) == 0
+                assert not bf16 or (q.units % 4 == 0 and q.kres % 8 == 0)
+                assert q.kres <= (-(-h // 8) * 8 if bf16 else h)
+                assert lstm_cuda.bwd_smem_bytes(*q, bf16) <= LIMIT
+
+
+# Kernel 3's plan.  bf16: U = ceil(H/C) up to a multiple of 4, SW = 2U+4
+# words a row; smem = 4 * (2*C*rows*U + (rows + kres)*SW).  f32: SW = 4U.
+# 8 CTAs are kept when the whole slice (H rows, to 8 on bf16) fits, else
+# 16 with as many whole rows (8-row tiles on bf16) as fit in 232448 bytes.
+# Rows: 16 while ceil(B/16)*C <= 112 CTAs (one wave), else 32.
+@pytest.mark.parametrize("b,h,bf16,want", [
+    # H=320 bf16, C=8, U=40, SW=84: 81920/2 + 5376 + 107520 fit; B=128
+    # takes 8 clusters of 8 (64 CTAs), still 16 rows
+    (1, 320, True, (8, 16, 40, 320)),
+    (8, 320, True, (8, 16, 40, 320)),
+    (20, 320, True, (8, 16, 40, 320)),
+    (128, 320, True, (8, 16, 40, 320)),
+    # H=640 bf16: C=8 (U=80, 16 rows: 208 of 640 resident) falls short, so
+    # C=16, U=40: 16 rows leave 145152 B = 432 rows of 336 B
+    (1, 640, True, (16, 16, 40, 432)),
+    (8, 640, True, (16, 16, 40, 432)),
+    (20, 640, True, (16, 16, 40, 432)),
+    # B=128 at 16 rows would be 8 x 16 = 128 CTAs: 32 rows, whose
+    # 163840 + 10752 B leave 57856 B: 172 rows, 168 in whole tiles
+    (128, 640, True, (16, 32, 40, 168)),
+    # H=1024 bf16, C=16, U=64: 32 rows' receive slots (262144 B) do not
+    # fit, 16 rows: 131072 + 8448 leave 92928 B = 176 rows of 528 B
+    (1, 1024, True, (16, 16, 64, 176)),
+    (8, 1024, True, (16, 16, 64, 176)),
+    (20, 1024, True, (16, 16, 64, 176)),
+    (128, 1024, True, (16, 16, 64, 176)),
+    # H=320 f32: C=8 holds 219 of 320 columns; C=16, U=20: the whole
+    # [80, 320] float slice (102400 B) fits beside 16 or 32 rows
+    (1, 320, False, (16, 16, 20, 320)),
+    (8, 320, False, (16, 16, 20, 320)),
+    (20, 320, False, (16, 16, 20, 320)),
+    (128, 320, False, (16, 32, 20, 320)),
+    # H=640 f32, C=16, U=40: 16 rows leave 140160 B = 219 columns of 640 B,
+    # 32 rows 48000 B = 75
+    (1, 640, False, (16, 16, 40, 219)),
+    (8, 640, False, (16, 16, 40, 219)),
+    (20, 640, False, (16, 16, 40, 219)),
+    (128, 640, False, (16, 32, 40, 75)),
+    # H=1024 f32, C=16, U=64, 16 rows: 131072 + 16384 leave 84992 B = 83
+    (1, 1024, False, (16, 16, 64, 83)),
+    (8, 1024, False, (16, 16, 64, 83)),
+    (20, 1024, False, (16, 16, 64, 83)),
+    (128, 1024, False, (16, 16, 64, 83)),
+])
+def test_bwd_plan(b, h, bf16, want):
+    plan = lstm_cuda.bwd_plan(b, h, bf16)
+    assert tuple(plan) == want
+    c, rows, units, kres = want
+    assert lstm_cuda.bwd_smem_bytes(c, rows, units, kres, bf16) <= LIMIT
+    assert units * c >= h and rows * units <= 512 * 4
+    assert lstm_cuda.fused_launch(b, 64, h, bf16).bwd == plan
+
+
+@pytest.mark.parametrize("cluster,rows,units,kres,bf16,want", [
+    # 2 x 8 x 16 x 40 f32 slots + (16 + 320) rows of 84 words
+    (8, 16, 40, 320, True, 4 * (10240 + 336 * 84)),
+    (16, 32, 40, 168, True, 4 * (40960 + 200 * 84)),
+    (16, 16, 64, 176, True, 4 * (32768 + 192 * 132)),
+    # f32: the operand [rows, 4U] and the slice [4U, kres] floats
+    (16, 32, 20, 320, False, 4 * (20480 + 32 * 80 + 80 * 320)),
+    (16, 16, 64, 83, False, 4 * (32768 + 16 * 256 + 256 * 83)),
+])
+def test_bwd_smem_bytes(cluster, rows, units, kres, bf16, want):
+    assert lstm_cuda.bwd_smem_bytes(cluster, rows, units, kres, bf16) == want
+
+
+def test_bwd_units_and_row_words():
+    assert [lstm_cuda.bwd_units(h, 8, True) for h in (320, 33, 8, 1)] == \
+        [40, 8, 4, 4]
+    assert [lstm_cuda.bwd_units(h, 8, False) for h in (320, 33, 8, 1)] == \
+        [40, 5, 1, 1]
+    assert lstm_cuda.bwd_units(640, 16, True) == 40
+    assert lstm_cuda.bwd_units(1024, 16, True) == 64
+    # bf16 rows 4 mod 8 words apart; f32 rows unpadded
+    assert [lstm_cuda.bwd_row_words(u, True) for u in (4, 40, 64)] == \
+        [12, 84, 132]
+    assert lstm_cuda.bwd_row_words(20, False) == 80
+
+
+@pytest.mark.parametrize("h,bf16", [(20, True), (37, True), (20, False),
+                                    (37, False)])
+def test_bwd_weight_slices_layout(h, bf16):
+    """CTA q's slice holds W_m[u', g*H + q*U + u] at row u', column
+    g*U + u (bf16: [C, Hp, 2*SW], zero past H and past 4U; f32: [C, 4U,
+    H], column-major), and zero for units past H."""
+    plan = lstm_cuda.bwd_plan(3, h, bf16)
+    c, u = plan.cluster, plan.units
+    w = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (h, 4 * h)).astype(np.float32))
+    w = w.to(torch.bfloat16) if bf16 else w
+    got = lstm_cuda.bwd_weight_slices(w, plan, bf16)
+    hp = -(-h // 8) * 8
+    want_shape = (c, hp, 2 * lstm_cuda.bwd_row_words(u, True)) if bf16 \
+        else (c, 4 * u, h)
+    assert tuple(got.shape) == want_shape and got.dtype == w.dtype
+    assert got.is_contiguous()
+    for q in range(c):
+        for g in range(4):
+            for k in range(u):
+                hu = q * u + k
+                col = got[q, :h, g * u + k] if bf16 else got[q, g * u + k]
+                want = w[:, g * h + hu] if hu < h else torch.zeros(h, dtype=w.dtype)
+                assert torch.equal(col, want), (q, g, k)
+    if bf16:
+        assert not got[:, h:].any() and not got[:, :, 4 * u:].any()
+
+
+@pytest.mark.parametrize("h", [1025, 1152, 2048])
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_fused_launch_still_refuses_past_1024(b, h):
+    """The route stays where it was: every H above 1024 goes to the v1
+    route (kernels 4 and 5), for both compute dtypes and any input
+    width."""
+    for d in (1, 640, 1152):
+        for bf16 in (True, False):
+            assert lstm_cuda.fused_launch(b, d, h, bf16) is None

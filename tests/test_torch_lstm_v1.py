@@ -201,13 +201,13 @@ def test_scan_with_no_steps_or_rows():
     (8, 1152, 1025), (8, 1152, 1152), (4, 60000, 64), (4, 26000, 1024),
 ])
 def test_fused_launch_refuses_exactly_past_the_limits(b, d, h):
-    """None exactly where kernel 1 or kernel 3 cannot take the shape: kernel
-    3's split*H threads above 1024 (i.e. any H > 1024) or its shared memory
-    at its rows.  Kernel 1 takes every H up to 1024 at any input width (its
-    projection is a tiled product; its recurrence keeps what fits of W_m
-    resident), so the accepted set holds every shape that the one-block
-    kernel 1 took, whose shared memory grew with D + H.  Host arithmetic
-    only."""
+    """None exactly where the route has always refused: the thread-per-unit
+    kernel 3's split*H threads above 1024 (i.e. any H > 1024) or its shared
+    memory at its rows (`fits` below).  Kernels 1 and 3 now run cluster
+    recurrences that keep what fits of W_m resident and take every H up to
+    1024 at any input width, so the accepted set holds every shape that
+    the one-block kernel 1 took, whose shared memory grew with D + H, and
+    `fused_launch` keeps the 1024 limit.  Host arithmetic only."""
     split = max(1, min(4, 1024 // h))
     rows = min(2, b)
     old_fwd = 4 * (1 * (d + h) + 2 * h + split * 4 * h)   # one-block kernel 1
@@ -219,7 +219,9 @@ def test_fused_launch_refuses_exactly_past_the_limits(b, d, h):
         if split * h <= 1024 and old_fwd <= 232448 and bwd <= 232448:
             assert got is not None
         if got is not None:
-            assert got.split == split and got.rows_bwd == rows
+            q = got.bwd
+            assert q.cluster in (8, 16) and q.units * q.cluster >= h
+            assert lstm_cuda.bwd_smem_bytes(*q, bf16) <= 232448
             p = got.fwd
             assert p.cluster in (8, 16) and p.units * p.cluster >= h
             assert lstm_cuda.fwd_smem_bytes(
