@@ -92,7 +92,11 @@ Phases, one JSON line each:
           wrapper's host time is as long as the kernel; kernels ctc_alpha
           and ctc_beta at the three CTC_CASES shapes), and the library
           call where one computes the same function (torch's ctc_loss on
-          the same logits);
+          the same logits); at the training shapes kernel lstm_fwd's
+          projection and recurrence apart (profiler device ms), and the
+          product kernel alone (gemm_bf16: event ms, TFLOP/s and bound)
+          for kernel 1's projection and kernel 3's three products beside
+          torch.matmul of the same bf16 operands;
           at H=640 also kernels lstm_scan_fwd/bwd (B=128, T=768), kernels
           lstm_fwd/lstm_bwd at D in {360, 1280} (B=128, T=768, and
           serving B=8, T=512), and the two routes' forward + backward per
@@ -101,7 +105,7 @@ Phases, one JSON line each:
           wall ms (host clock to synchronize, profiler off; decode also
           per frame), then under torch.profiler the device-busy ms (sum
           of kernel times), the idle share, and the top kernels (the
-          forward's shows kernel lstm_fwd's projection, gemm_tc_kernel,
+          forward's shows kernel lstm_fwd's projection, gemm_bf16_kernel,
           and its recurrence, lstm_rec_kernel, apart).
 Then the `kernels` report line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}` -- printed only when every phase
@@ -202,16 +206,14 @@ def _cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel: str, reps: int) -> float:
+def _device_ms(fn, kernel: str, reps: int) -> float | None:
     """Device ms per launch of the CUDA kernel whose name holds `kernel`,
     over `reps` calls of fn under torch.profiler: the kernel alone, where
     an event pair around one call of a short kernel also takes in the
-    wrapper's host time before the launch."""
-    top = _profile(lambda: [fn() for _ in range(reps)])["top"] or []
-    hits = [r for r in top if kernel in r["kernel"]]
-    if not hits:
-        raise AssertionError(f"the profiler recorded no {kernel}")
-    return hits[0]["ms"] / hits[0]["calls"]
+    wrapper's host time before the launch.  None when the profiler
+    recorded no launch of it (`_device_split`)."""
+    hit = _device_split(fn, {"kernel": (kernel,)}, reps)["kernel"]
+    return hit["ms"] / hit["launches"] if hit["launches"] else None
 
 
 def _mask(dev):
@@ -1255,43 +1257,68 @@ def bwd_residency(b: int, h: int):
 def _device_split(fn, groups, reps: int = 4):
     """Device time of `reps` calls of fn() under torch.profiler, summed by
     groups of kernel names ({group: substrings}; the rest under "other"):
-    {group: {"ms": total ms, "launches": kernels recorded}}.  The launch
-    counts show what the window recorded: this machine's profiler can
-    drop kernel records (PERF.md), and a one-call window has recorded
-    none."""
+    {group: {"ms": total ms, "launches": kernels recorded,
+    "gemm_launches": of them, product kernels}, "windows": profiled
+    windows}.  The launch counts show what the window recorded: this
+    machine's profiler can drop kernel records (PERF.md), and has
+    recorded no kernel at all in some windows; a window that recorded no
+    kernel of some group is profiled again, at most three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {g: {"ms": 0.0, "launches": 0} for g in (*groups, "other")}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            g = next((g for g, names in groups.items()
-                      if any(n in e.key for n in names)), "other")
-            out[g]["ms"] += e.self_device_time_total / 1e3
-            out[g]["launches"] += e.count
+    for window in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {g: {"ms": 0.0, "launches": 0, "gemm_launches": 0}
+               for g in (*groups, "other")}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and \
+                    e.self_device_time_total > 0:
+                g = next((g for g, names in groups.items()
+                          if any(n in e.key for n in names)), "other")
+                out[g]["ms"] += e.self_device_time_total / 1e3
+                out[g]["launches"] += e.count
+                if any(n in e.key for n in PRODUCT_KERNELS[:2]):
+                    out[g]["gemm_launches"] += e.count
+        if all(out[g]["launches"] for g in groups):
+            break
+    out["windows"] = window
     return out
 
 
+# the product kernel and the device kernels around it: its operand copies
+# (pad_kernel) and kernel 3's ordered sums of partials (sum_rows_kernel)
+PRODUCT_KERNELS = ("gemm_bf16_kernel", "gemm_kernel", "pad_kernel",
+                   "sum_rows_kernel")
 # kernel 3's device kernels: the recurrence, and the products with their
 # partial sums; "other" is the wrapper's torch ops (the W_m slice layout)
 BWD_GROUPS = {"recurrence": ("lstm_bwd_rec_kernel",),
-              "products": ("gemm_tc_kernel", "gemm_kernel", "sum_rows_kernel")}
+              "products": PRODUCT_KERNELS}
+# kernel 1's: the input projection and the recurrence
+FWD_GROUPS = {"projection": PRODUCT_KERNELS,
+              "recurrence": ("lstm_rec_kernel",)}
+
+
+def _per_call(group, calls_seen) -> float | None:
+    """A group's device ms per call of its wrapper, over the calls whose
+    launches the profiler recorded (calls_seen)."""
+    return group["ms"] / calls_seen if calls_seen else None
 
 
 def bwd_timing(bwd, valid: int, b: int, h: int, reps: int):
     """Kernel 3 per direction-layer: event ms, the plain version's, its
     bound, the device ms of its recurrence (per launch, and per step) and
-    of its products (per call: 3 tiled products and 3 partial sums), both
-    from the profiler's recorded launches, and its cluster plan and
-    residency."""
+    of its products (per call: the three products and the sums of their
+    partials), both from the profiler's recorded launches (a call's
+    products counted by its recorded product-kernel launches, three a
+    call), its cluster plan and residency, and the three products alone
+    (`products_timing`)."""
     from eesen_tpu_torch.ops import lstm_cuda
 
     grads = lstm_cuda.lstm_direction_bwd(**bwd)
@@ -1299,7 +1326,7 @@ def bwd_timing(bwd, valid: int, b: int, h: int, reps: int):
     split = _device_split(lambda: lstm_cuda.lstm_direction_bwd(**bwd),
                           BWD_GROUPS)
     rec, prod = split["recurrence"], split["products"]
-    rec_ms = rec["ms"] / rec["launches"] if rec["launches"] else None
+    rec_ms = _per_call(rec, rec["launches"])
     t_max = bwd["x"].shape[0]
     return dict(
         ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_bwd(**bwd), reps),
@@ -1307,9 +1334,82 @@ def bwd_timing(bwd, valid: int, b: int, h: int, reps: int):
         bound_ms=bound, bound_by=by,
         rec_ms=rec_ms,
         rec_us_per_step=rec_ms * 1e3 / t_max if rec_ms is not None else None,
-        products_ms=(6 * prod["ms"] / prod["launches"] if prod["launches"]
-                     else None),
-        device_split=split, clusters=bwd_residency(b, h))
+        products_ms=_per_call(prod, prod["gemm_launches"] / 3),
+        device_split=split, clusters=bwd_residency(b, h),
+        products=products_timing(bwd, reps))
+
+
+def fwd_split(fwd):
+    """Kernel 1 with residuals at a training shape: the device ms of its
+    projection and of its recurrence per call (profiler), and the
+    projection alone (`projection_timing`)."""
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    split = _device_split(lambda: lstm_cuda.lstm_direction(
+        **fwd, state_bf16=True, with_residuals=True), FWD_GROUPS)
+    rec = split["recurrence"]
+    proj = split["projection"]
+    return dict(projection_ms=_per_call(proj, proj["gemm_launches"]),
+                recurrence_ms=_per_call(rec, rec["launches"]),
+                device_split=split, projection=projection_timing(fwd))
+
+
+def _product(name, a, b, reps, **kw):
+    """The product kernel alone (lstm_cuda.gemm_bf16) on these operands:
+    event ms, TFLOP/s (2*M*N*K), its bound (the larger of the FLOPs at the
+    bf16 rate and the operands read once and C written once at the memory
+    rate) and torch.matmul of the same bf16 operands as library_ms."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    av, bv, k = lstm_cuda.gemm_operands(
+        a, b, **{n: kw[n] for n in ("a_mn", "b_mn", "k", "b_k0") if n in kw})
+    m, n = av.shape[0], bv.shape[1]
+    flops = 2.0 * m * n * k
+    out_bytes = 2 if kw.get("out_dtype") == torch.bfloat16 else 4
+    nbytes = 2 * (m * k + k * n) + out_bytes * m * n
+    ms = _cuda_ms(lambda: lstm_cuda.gemm_bf16(a, b, **kw), reps)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"product": name, "shape": f"M={m} N={n} K={k}",
+            "splits": kw.get("splits", 1), "ms": ms,
+            "tflops": flops / ms / 1e9,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": _cuda_ms(lambda: torch.matmul(av, bv), reps),
+            "library_call": "torch.matmul (bf16)"}
+
+
+def products_timing(bwd, reps: int):
+    """Kernel 3's three products alone at its shapes and splits (dW_x,
+    dW_m, dx; the gate residuals stand in for dgifo, of its shape and
+    type): per product and summed."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda
+
+    t_max, b, d = bwd["x"].shape
+    h = bwd["w_m"].shape[0]
+    tb = t_max * b
+    x2 = bwd["x"].reshape(tb, d)
+    dg = bwd["gates"].reshape(tb, 4 * h)
+    m2 = bwd["m"].reshape(tb, h).to(torch.bfloat16)
+    zx = lstm_cuda.gemm_plan(d, 4 * h, tb).splits
+    zm = lstm_cuda.gemm_plan(h, 4 * h, tb - b).splits
+    rows = [_product("dW_x", x2, dg, reps, a_mn=True, splits=zx),
+            _product("dW_m", m2, dg, reps, a_mn=True, b_k0=b, k=tb - b,
+                     splits=zm),
+            _product("dx", dg, bwd["w_x"], reps, b_mn=False,
+                     out_dtype=torch.bfloat16)]
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "bound_ms", "library_ms")}
+    flops = sum(r["tflops"] * r["ms"] for r in rows)
+    return {"each": rows, **tot, "tflops": flops / tot["ms"]}
+
+
+def projection_timing(fwd):
+    """Kernel 1's projection x.W_x + b alone at its shape."""
+    t_max, b, d = fwd["x"].shape
+    return _product("x.W_x + b", fwd["x"].reshape(t_max * b, d),
+                    fwd["w_x"], 5, bias=fwd["bias"])
 
 
 def phase_timing(dev):
@@ -1400,7 +1500,7 @@ def timing_libri(dev):
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **fwd, state_bf16=True, with_residuals=True), 1),
             bound_ms=bound, bound_by=by,
-            clusters=fwd_residency(TRAIN_B, LIBRI_H))
+            clusters=fwd_residency(TRAIN_B, LIBRI_H), **fwd_split(fwd))
         out["lstm_bwd_h640"][f"D{d}"] = bwd_timing(bwd, valid, TRAIN_B,
                                                    LIBRI_H, 2)
         del fwd, bwd, res
@@ -1470,7 +1570,7 @@ def timing_train_shapes(dev):
             plain_ms=_cuda_ms(lambda: lstm_cuda.lstm_direction_ref(
                 **fwd, state_bf16=True, with_residuals=True), 1),
             bound_ms=bound, bound_by=by,
-            clusters=fwd_residency(TRAIN_B, 320),
+            clusters=fwd_residency(TRAIN_B, 320), **fwd_split(fwd),
         )
         out["lstm_bwd"][f"D{d}"] = bwd_timing(bwd, valid, TRAIN_B, 320, 3)
         del fwd, bwd, res
@@ -1616,6 +1716,9 @@ def kernels_report(state, timing):
          "train_shape_ms": ltt["ms"], "train_shape_plain_ms": ltt["plain_ms"],
          "train_shape_ms_per_step": ltt["ms_per_step"],
          "train_shape_bound_ms": ltt["bound_ms"],
+         "train_shape_projection_ms": ltt["projection_ms"],
+         "train_shape_recurrence_ms": ltt["recurrence_ms"],
+         "train_shape_projection": ltt["projection"],
          "libri_serve_launches": state["libri_serve_launches"]["lstm_fwd"],
          "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
          "h640": h640["lstm_fwd"]},
@@ -1630,6 +1733,7 @@ def kernels_report(state, timing):
          "shape": "B=128 T=768 D=640 H=320 bf16, state_bf16",
          "rec_ms": bt["rec_ms"], "rec_us_per_step": bt["rec_us_per_step"],
          "products_ms": bt["products_ms"], "clusters": bt["clusters"],
+         "products": bt["products"],
          "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
          "h640": h640["lstm_bwd"]},
         *scan_rows,

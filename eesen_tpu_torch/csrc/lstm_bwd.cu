@@ -24,7 +24,9 @@
 // on the bf16 path, as [C][4U][H] floats (column j, then u') on the f32
 // path.  Outputs: dx [T,B,D] compute type; dW_x [D,4H], dW_m [H,4H] and
 // db|dph [7H] f32.  Scratch from the caller: dgifo [T,B,4H] (compute type),
-// per-row partial sums [B,7H] and split-K partials of dW_x and dW_m.
+// per-row partial sums [B,7H], split-K partials of dW_x and dW_m and, on the
+// bf16 path, zero-padded bf16 copies of the products' operands whose rows
+// are not whole 16-byte units (the tensor maps' rule) or, for m, not bf16.
 //
 // Design.  On the TPU one sequential grid carries dm/dc and accumulates dW in
 // VMEM while W_m stays resident; here the work is split in two:
@@ -48,26 +50,30 @@
 //       shared memory (a reduce-scatter; double-buffered receive slots); one
 //       cluster barrier ends the step.  It writes dgifo and, per batch row,
 //       the partial sums of db and dph.
-//   (b) the products dW_x, dW_m and dx as tiled kernels over 64x64 output
-//       tiles (csrc/gemm_tile.cuh, shared with the forward kernel's input
-//       projection): gemm_tc_kernel on the tensor cores (wmma bf16 16x16x16
-//       fragments, float32 accumulators) for the bf16 path, gemm_kernel on
-//       the FMA units (float32) for the f32 path.  The two weight gradients
-//       are split over k into partial buffers; sum_rows_kernel then adds the
-//       partials in a fixed order, so the result is deterministic.
+//   (b) the products dW_x, dW_m and dx, shared in kind with the forward
+//       kernel's input projection: on the bf16 path the wgmma + TMA product
+//       gemm_bf16_run (csrc/gemm_wgmma.cu), which reads x and m as the
+//       transposed A and W_x as the transposed B where they lie, and dW_m's
+//       dgifo from row B on by the tensor map's start coordinate; on the f32
+//       path gemm_kernel (csrc/gemm_tile.cuh, FMA).  The two weight
+//       gradients are split over k into partial buffers (ops/lstm_cuda.py
+//       gemm_plan); sum_rows_kernel then adds the partials in a fixed order,
+//       so the result is deterministic.
 //
 // Bound.  At B=128, T=768, H=640, D=1280 the work is 4*B*T*(D+H)*4H FLOP
 // over the valid steps, ~1.9 ms at 989 TFLOP/s (bf16).  The recurrence (a)
 // is bound by its T-step serial chain: per step the residuals' loads, one
 // partial product of 2*rows*4U*H FLOP a CTA, the DSMEM reduce-scatter
 // (rows*H*4 bytes out of each CTA) and one cluster barrier.  The products
-// stage their tiles through registers one element a thread with no
-// copy/compute overlap (TMA and wgmma pipelines are the next step).
+// are bound by the tensor cores (csrc/gemm_wgmma.cu).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -410,8 +416,9 @@ template <typename TIn, typename TState>
 cudaError_t run(const void* x, const void* mask, const void* gates, const void* c, const void* m,
                 const void* gm, const void* wx, const void* wsl, const void* ph, void* dx,
                 void* dwx, void* dwm, void* dbph, void* dgifo, void* part_rows, void* part_wx,
-                void* part_wm, int T, int B, int D, int H, int cluster, int rows, int units,
-                int kres, int zx, int zm, cudaStream_t st) {
+                void* part_wm, void* x_pad, void* dg_pad, void* m_pad, void* wx_pad, int T,
+                int B, int D, int H, int cluster, int rows, int units, int kres, int zx, int zm,
+                cudaStream_t st) {
   const int G = 4 * H;
   const long long TB = (long long)T * B;
   cudaLaunchConfig_t cfg;
@@ -431,21 +438,55 @@ cudaError_t run(const void* x, const void* mask, const void* gates, const void* 
   if (err != cudaSuccess) return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = sum_rows(part_rows, dbph, B, 7LL * H, st)) != cudaSuccess) return err;
-  // dW_x = x^T . dgifo: A(d, tb) = x[tb*D + d], B(tb, g) = dgifo[tb*G + g]
-  err = gemm<TIn, TIn, float, TIn, true, true>(x, 1, D, dgifo, G, 1, part_wx, nullptr, D, G,
-                                               (int)TB, zx, st);
-  if (err != cudaSuccess) return err;
-  if ((err = sum_rows(part_wx, dwx, zx, (long long)D * G, st)) != cudaSuccess) return err;
+  // dW_x = x^T . dgifo: A(d, tb) = x[tb*D + d], B(tb, g) = dgifo[tb*G + g];
   // dW_m = m_prev^T . dgifo: m_prev at step t is the m carry at t-1, so
-  // pair m rows [0, T-1) with dgifo rows [1, T)
-  const TIn* dg1 = static_cast<const TIn*>(dgifo) + (size_t)B * G;
-  err = gemm<TState, TIn, float, TIn, true, true>(m, 1, H, dg1, G, 1, part_wm, nullptr, H, G,
-                                                  (int)(TB - B), zm, st);
-  if (err != cudaSuccess) return err;
-  if ((err = sum_rows(part_wm, dwm, zm, (long long)H * G, st)) != cudaSuccess) return err;
+  // pair m rows [0, T-1) with dgifo rows [1, T);
   // dx = dgifo . W_x^T: A(tb, g) = dgifo[tb*G + g], B(g, d) = W_x[d*G + g]
-  return gemm<TIn, TIn, TIn, TIn, false, false>(dgifo, G, 1, wx, 1, G, dx, nullptr, (int)TB, D,
-                                              G, 1, st);
+  if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
+    int ldx = D, ldg = G, ldm = H, ldw = G;
+    if (x_pad != nullptr) {
+      if ((err = pad_bf16(x, false, TB, D, D, x_pad, st)) != cudaSuccess) return err;
+      x = x_pad;
+      ldx = pad8(D);
+    }
+    const void* dg = dgifo;
+    if (dg_pad != nullptr) {
+      if ((err = pad_bf16(dgifo, false, TB, G, G, dg_pad, st)) != cudaSuccess) return err;
+      dg = dg_pad;
+      ldg = pad8(G);
+    }
+    if (m_pad != nullptr) {  // also the bf16 rounding of an f32 m carry
+      err = pad_bf16(m, std::is_same<TState, float>::value, TB - B, H, H, m_pad, st);
+      if (err != cudaSuccess) return err;
+      m = m_pad;
+      ldm = pad8(H);
+    }
+    if (wx_pad != nullptr) {
+      if ((err = pad_bf16(wx, false, D, G, G, wx_pad, st)) != cudaSuccess) return err;
+      wx = wx_pad;
+      ldw = pad8(G);
+    }
+    err = gemm_bf16_run(x, true, ldx, dg, true, ldg, 0, part_wx, false, nullptr, D, G, (int)TB,
+                        zx, st);
+    if (err != cudaSuccess) return err;
+    if ((err = sum_rows(part_wx, dwx, zx, (long long)D * G, st)) != cudaSuccess) return err;
+    err = gemm_bf16_run(m, true, ldm, dg, true, ldg, B, part_wm, false, nullptr, H, G,
+                        (int)(TB - B), zm, st);
+    if (err != cudaSuccess) return err;
+    if ((err = sum_rows(part_wm, dwm, zm, (long long)H * G, st)) != cudaSuccess) return err;
+    return gemm_bf16_run(dg, false, ldg, wx, false, ldw, 0, dx, true, nullptr, (int)TB, D, G, 1,
+                         st);
+  } else {
+    err = gemm<TIn, TIn, float>(x, 1, D, dgifo, G, 1, part_wx, nullptr, D, G, (int)TB, zx, st);
+    if (err != cudaSuccess) return err;
+    if ((err = sum_rows(part_wx, dwx, zx, (long long)D * G, st)) != cudaSuccess) return err;
+    const TIn* dg1 = static_cast<const TIn*>(dgifo) + (size_t)B * G;
+    err = gemm<TState, TIn, float>(m, 1, H, dg1, G, 1, part_wm, nullptr, H, G, (int)(TB - B), zm,
+                                   st);
+    if (err != cudaSuccess) return err;
+    if ((err = sum_rows(part_wm, dwm, zm, (long long)H * G, st)) != cudaSuccess) return err;
+    return gemm<TIn, TIn, TIn>(dgifo, G, 1, wx, 1, G, dx, nullptr, (int)TB, D, G, 1, st);
+  }
 }
 
 }  // namespace
@@ -475,23 +516,28 @@ extern "C" int lstm_bwd_max_clusters(int B, int H, int cluster, int rows, int un
 // cluster can be resident).  in_bf16: x/gates/W_x/dx/dgifo are bf16 and
 // wsl is the bf16 slice layout (else f32); state_bf16: c/m/gm are bf16.
 // zx, zm: k-slices of the dW_x and dW_m products (part_wx holds zx*D*4H
-// floats, part_wm zm*H*4H).
+// floats, part_wm zm*H*4H).  Bf16 path: x_pad [T*B, D8], dg_pad [T*B, G8],
+// m_pad [(T-1)*B, H8] and wx_pad [D, G8] (X8: X rounded up to 8, G = 4H)
+// take zero-padded bf16 copies of x, dgifo, m and W_x, given where the
+// caller found the operand's rows not whole 16-byte units or m not bf16
+// (else null).
 extern "C" int lstm_bwd(const void* x, const void* mask, const void* gates, const void* c,
                         const void* m, const void* gm, const void* wx, const void* wsl,
                         const void* ph, void* dx, void* dwx, void* dwm, void* dbph, void* dgifo,
-                        void* part_rows, void* part_wx, void* part_wm, int T, int B, int D,
-                        int H, int in_bf16, int state_bf16, int cluster, int rows, int units,
-                        int kres, int zx, int zm, void* stream) {
+                        void* part_rows, void* part_wx, void* part_wm, void* x_pad,
+                        void* dg_pad, void* m_pad, void* wx_pad, int T, int B, int D, int H,
+                        int in_bf16, int state_bf16, int cluster, int rows, int units, int kres,
+                        int zx, int zm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_bf16) {
     err = state_bf16
-              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
-              : run<__nv_bfloat16, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
+              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, x_pad, dg_pad, m_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
+              : run<__nv_bfloat16, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, x_pad, dg_pad, m_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
   } else {
     err = state_bf16
-              ? run<float, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
-              : run<float, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
+              ? run<float, __nv_bfloat16>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, x_pad, dg_pad, m_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, zx, zm, st)
+              : run<float, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, x_pad, dg_pad, m_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
   }
   return (int)err;
 }

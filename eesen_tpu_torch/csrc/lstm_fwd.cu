@@ -17,8 +17,11 @@
 // Design.  Two kernels, as the TPU kernel splits its body (the per-block
 // MXU product of lstm_pallas.py:345-349, then the loop of :351-376):
 //   (1) the input projection of all T*B rows at once, xw = x.W_x + b, with
-//       float32 sums: gemm_tc_kernel (wmma bf16) or gemm_kernel (FMA, f32)
-//       from csrc/gemm_tile.cuh, the bias in the epilogue;
+//       float32 sums and the bias in the epilogue: on the bf16 path the
+//       wgmma + TMA product gemm_bf16_run (csrc/gemm_wgmma.cu; x or W_x
+//       first copied into a zero-padded scratch when its rows are not whole
+//       16-byte units, which the tensor maps need), on the f32 path
+//       gemm_kernel (csrc/gemm_tile.cuh, FMA);
 //   (2) lstm_rec_kernel, the recurrence on thread-block clusters of C CTAs
 //       (C = 8, or 16 with the non-portable size).  A cluster owns `rows`
 //       batch rows (16 or 32; fewer only on the f32 path); CTA q owns hidden
@@ -43,7 +46,10 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -309,8 +315,8 @@ cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kre
 template <typename TIn, typename TState>
 cudaError_t run(const void* x, const void* mask, const void* wx, const void* bias,
                 const void* w, const void* ph, void* m_out, void* c_out, void* gates_out,
-                void* xw, int T, int B, int D, int H, int cluster, int rows, int units, int kres,
-                cudaStream_t st) {
+                void* xw, void* x_pad, void* wx_pad, int T, int B, int D, int H,
+                int cluster, int rows, int units, int kres, cudaStream_t st) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
@@ -320,9 +326,25 @@ cudaError_t run(const void* x, const void* mask, const void* wx, const void* bia
   if (err != cudaSuccess) return err;
   if (active < 1) return cudaErrorInvalidConfiguration;
   // (1) xw = x.W_x + b: A(tb, d) = x[tb*D + d], B(d, g) = W_x[d*4H + g]
-  err = gemm<TIn, TIn, float, TIn, false, true, true>(x, D, 1, wx, 4LL * H, 1, xw,
-                                                static_cast<const float*>(bias), T * B, 4 * H,
-                                                D, 1, st);
+  const int G = 4 * H, TB = T * B;
+  if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
+    int ldx = D, ldw = G;
+    if (x_pad != nullptr) {
+      if ((err = pad_bf16(x, false, TB, D, D, x_pad, st)) != cudaSuccess) return err;
+      x = x_pad;
+      ldx = pad8(D);
+    }
+    if (wx_pad != nullptr) {
+      if ((err = pad_bf16(wx, false, D, G, G, wx_pad, st)) != cudaSuccess) return err;
+      wx = wx_pad;
+      ldw = pad8(G);
+    }
+    err = gemm_bf16_run(x, false, ldx, wx, true, ldw, 0, xw, false,
+                        static_cast<const float*>(bias), TB, G, D, 1, st);
+  } else {
+    err = gemm<TIn, TIn, float, true>(x, D, 1, wx, G, 1, xw, static_cast<const float*>(bias),
+                                      TB, G, D, 1, st);
+  }
   if (err != cudaSuccess) return err;
   // (2) the recurrence
   err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<TIn, TState>, static_cast<const float*>(xw),
@@ -358,22 +380,25 @@ extern "C" int lstm_fwd_max_clusters(int B, int H, int cluster, int rows, int un
 // the first `kres` input rows of its W_m slice resident.  Returns the first
 // CUDA error (cudaErrorInvalidConfiguration when not even one cluster can be
 // resident).  in_bf16: x/W_x/W_m^T are bf16 (else x/W_x/W_m f32);
-// state_bf16: m/c outputs bf16.  c_out and gates_out may be null.
+// state_bf16: m/c outputs bf16.  c_out and gates_out may be null.  x_pad
+// [T*B, D rounded to 8] and wx_pad [D, 4H rounded to 8] (bf16 path) are
+// scratch for zero-padded copies of x and W_x, given where the caller found
+// the operand's rows not whole 16-byte units (else null).
 extern "C" int lstm_fwd(const void* x, const void* mask, const void* wx, const void* bias,
                         const void* w, const void* ph, void* m_out, void* c_out,
-                        void* gates_out, void* xw, int T, int B, int D, int H, int in_bf16,
-                        int state_bf16, int cluster, int rows, int units, int kres,
-                        void* stream) {
+                        void* gates_out, void* xw, void* x_pad, void* wx_pad, int T, int B,
+                        int D, int H, int in_bf16, int state_bf16, int cluster, int rows,
+                        int units, int kres, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_bf16) {
     err = state_bf16
-              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st)
-              : run<__nv_bfloat16, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st);
+              ? run<__nv_bfloat16, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, x_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, st)
+              : run<__nv_bfloat16, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, x_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, st);
   } else {
     err = state_bf16
-              ? run<float, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st)
-              : run<float, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, T, B, D, H, cluster, rows, units, kres, st);
+              ? run<float, __nv_bfloat16>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, x_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, st)
+              : run<float, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, x_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, st);
   }
   return (int)err;
 }

@@ -26,7 +26,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = (
-    "lstm_fwd.cu", "lstm_bwd.cu", "lstm_scan_fwd.cu", "lstm_scan_bwd.cu",
+    "lstm_fwd.cu", "lstm_bwd.cu", "gemm_wgmma.cu", "lstm_scan_fwd.cu",
+    "lstm_scan_bwd.cu",
     "ctc_alpha_beta.cu", "dedup_prune.cu", "cuda_errors.cu",
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libeesen_kernels.so")
@@ -126,18 +127,25 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(build())
-        lib.lstm_fwd.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+        lib.lstm_fwd.argtypes = [_P] * 12 + [_I] * 10 + [_P]
         lib.lstm_fwd.restype = _I
         lib.lstm_fwd_smem_bytes.argtypes = [_I] * 5
         lib.lstm_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.lstm_fwd_max_clusters.argtypes = [_I] * 7
         lib.lstm_fwd_max_clusters.restype = _I
-        lib.lstm_bwd.argtypes = [_P] * 17 + [_I] * 12 + [_P]
+        lib.lstm_bwd.argtypes = [_P] * 21 + [_I] * 12 + [_P]
         lib.lstm_bwd.restype = _I
         lib.lstm_bwd_smem_bytes.argtypes = [_I] * 5
         lib.lstm_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.lstm_bwd_max_clusters.argtypes = [_I] * 7
         lib.lstm_bwd_max_clusters.restype = _I
+        lib.gemm_bf16.argtypes = ([_P] + [_I] * 2 + [_P] + [_I] * 3
+                                  + [_P, _I, _P] + [_I] * 4 + [_P])
+        lib.gemm_bf16.restype = _I
+        lib.gemm_bf16_kslice.argtypes = [_I] * 2
+        lib.gemm_bf16_kslice.restype = _I
+        lib.gemm_bf16_smem_bytes.argtypes = []
+        lib.gemm_bf16_smem_bytes.restype = _I
         for name in ("lstm_scan_fwd", "lstm_scan_bwd"):
             getattr(lib, name).argtypes = [_P] * 8 + [_I] * 5 + [_P]
             getattr(lib, name).restype = _I

@@ -27,7 +27,10 @@ their slice of W_m in shared memory (`fwd_plan` sizes them).  Kernel 3
 the same shape (`bwd_plan`; each CTA keeps its W_m slice, laid out by
 `bwd_weight_slices`, and the step's dm is reduce-scattered through
 distributed shared memory), then the per-row sums and the three tiled
-products.
+products.  On the bf16 path the four products run on one wgmma + TMA
+kernel (csrc/gemm_wgmma.cu; `gemm_plan` splits the weight gradients over
+k, `gemm_bf16` calls the product alone), on the f32 path on an FMA one
+(csrc/gemm_tile.cuh).
 
 Which route a direction takes on the card: `fused_launch(B, D, H)` gives
 the launch parameters of kernels 1 and 3, or None where they do not take
@@ -73,6 +76,12 @@ BWD_WAVE_CTAS = 112           # CTAs of clusters the H100 holds at once
                               # 15 of 8 at these kernels' shared memory)
 BWD_THREADS = 512             # kernel 3: threads a CTA, and (row, unit)
 BWD_EPT = 4                   # elements each carries in registers
+GEMM_TILE = (128, 128, 64)    # the product kernel's output tile and k step
+GEMM_STAGES = 4               # its ring of shared-memory stages
+GEMM_SMEM_BYTES = GEMM_STAGES * 2 * 128 * 64 * 2 + 1024 + 2 * GEMM_STAGES * 8
+SMS = 132                     # the H100's SMs: one product CTA each
+GEMM_MAX_SPLIT = 16           # k-slices of a weight-gradient product: at
+GEMM_MIN_SLICE = 8            # most 16, each at least 8 k steps
 
 
 def _scan(
@@ -345,11 +354,15 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
         w = w_m.t().contiguous() if bf16 else w_m
         xw = torch.empty((t_max, b, 4 * h), dtype=torch.float32,
                          device=x.device)
+        # the projection's operands as its tensor maps take them
+        x_pad = wx_pad = None
+        if bf16:
+            x_pad = _pad_scratch(x, t_max * b, d)
+            wx_pad = _pad_scratch(w_x, d, 4 * h)
         err = lib.lstm_fwd(
             x.data_ptr(), mask.data_ptr(), w_x.data_ptr(), bias.data_ptr(),
-            w.data_ptr(), ph.data_ptr(), m.data_ptr(),
-            c.data_ptr() if c is not None else None,
-            gates.data_ptr() if gates is not None else None, xw.data_ptr(),
+            w.data_ptr(), ph.data_ptr(), m.data_ptr(), _ptr(c), _ptr(gates),
+            xw.data_ptr(), _ptr(x_pad), _ptr(wx_pad),
             t_max, b, d, h, int(bf16), int(state_bf16),
             p.cluster, p.rows, p.units, p.kres,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -361,18 +374,16 @@ def _forward(x, mask, w_x, bias, w_m, ph, state_bf16, with_residuals):
     return m
 
 
-def lstm_direction_bwd_ref(
+def lstm_direction_bwd_rec_ref(
     x: torch.Tensor, mask: torch.Tensor, gates: torch.Tensor,
-    c: torch.Tensor, m: torch.Tensor, gm: torch.Tensor, w_x: torch.Tensor,
-    w_m: torch.Tensor, ph: torch.Tensor,
-) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the backward kernel, step for step as
+    c: torch.Tensor, gm: torch.Tensor, w_m: torch.Tensor, ph: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse recurrence of the plain backward, step for step as
     `_fused_bwd_kernel` (lstm_pallas.py:403-482), with its casts: c_raw
     recomputed from the stored gates and c carry; dgifo rounded to the
-    dtype of x for the three products (float32 sums), unrounded for db and
-    dph.  Returns (dx [T,B,D] dtype of x, dw_x [D,4H], dw_m [H,4H],
-    db [4H], dph [3,H]) float32."""
-    t_max, b, d = x.shape
+    dtype of x for the products, unrounded for db and dph.  Returns
+    (dgifo [T,B,4H] dtype of x, db [4H], dph [3,H] float32)."""
+    t_max, b, _ = x.shape
     h = w_m.shape[0]
     cdt = x.dtype
     f32 = torch.float32
@@ -410,6 +421,25 @@ def lstm_direction_bwd_ref(
         dph[0] += (di_pre * c_prev).sum(0)
         dph[1] += (df_pre * c_prev).sum(0)
         dph[2] += (do_pre * c_raw).sum(0)
+    return dgifo_all, db, dph
+
+
+def lstm_direction_bwd_ref(
+    x: torch.Tensor, mask: torch.Tensor, gates: torch.Tensor,
+    c: torch.Tensor, m: torch.Tensor, gm: torch.Tensor, w_x: torch.Tensor,
+    w_m: torch.Tensor, ph: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward kernel: the reverse recurrence
+    (`lstm_direction_bwd_rec_ref`), then the three products of the
+    rounded dgifo with float32 sums, m_prev rounded to the dtype of x.
+    Returns (dx [T,B,D] dtype of x, dw_x [D,4H], dw_m [H,4H], db [4H],
+    dph [3,H]) float32."""
+    t_max, b, d = x.shape
+    h = w_m.shape[0]
+    cdt = x.dtype
+    f32 = torch.float32
+    dgifo_all, db, dph = lstm_direction_bwd_rec_ref(x, mask, gates, c, gm,
+                                                    w_m, ph)
     dg2 = dgifo_all.to(f32).reshape(t_max * b, 4 * h)
     dx = torch.matmul(dg2, w_x.to(f32).t()).reshape(t_max, b, d).to(cdt)
     dw_x = torch.matmul(x.to(f32).reshape(t_max * b, d).t(), dg2)
@@ -418,10 +448,117 @@ def lstm_direction_bwd_ref(
     return dx, dw_x, dw_m, db, dph
 
 
-def _k_slices(tiles: int, k: int) -> int:
-    """k-slices of a weight-gradient product: about four blocks for each
-    of the 132 SMs, each slice at least 1024 deep."""
-    return max(1, min(-(-4 * 132 // tiles), k // 1024))
+class GemmPlan(NamedTuple):
+    tiles: int         # 128 x 128 output tiles
+    splits: int        # k-slices, each summed into its own partial
+    kslice: int        # k per slice: whole 64-deep k steps
+
+
+def gemm_plan(m: int, n: int, k: int, split: bool = True) -> GemmPlan:
+    """How the product kernel covers C [m, n] = A [m, k] . B [k, n]: its
+    tiles, and (split: the weight gradients, few tiles and k ~ T*B) the
+    k-slices that fill the card: the fewest slices, up to GEMM_MAX_SPLIT
+    and at least GEMM_MIN_SLICE k steps each, whose CTAs fill 90% of the
+    waves of SMS CTAs they take, else the fullest.  k per slice is whole k
+    steps (csrc/gemm_wgmma.cu gemm_kslice), and no slice is empty."""
+    bm, bn, bk = GEMM_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // bk)
+    z = 1
+    if split:
+        most = max(1, min(GEMM_MAX_SPLIT, steps // GEMM_MIN_SLICE))
+        best = (0, 1, 1)                    # (CTAs, wave slots, slices)
+        for cand in range(1, most + 1):
+            ctas = tiles * cand
+            slots = -(-ctas // SMS) * SMS
+            if 10 * ctas >= 9 * slots:
+                best = (ctas, slots, cand)
+                break
+            if ctas * best[1] > best[0] * slots:
+                best = (ctas, slots, cand)
+        z = best[2]
+    per = max(1, -(-steps // z))
+    return GemmPlan(tiles, max(1, -(-steps // per)), per * bk)
+
+
+def gemm_operands(a, b, a_mn=False, b_mn=True, k=None, b_k0=0):
+    """Views A [M, K] and B [K, N] of the stored arrays as the product
+    kernel reads them (see `gemm_bf16`), and K."""
+    if k is None:
+        k = (b.shape[0] if b_mn else b.shape[1]) - b_k0
+    av = a[:k].t() if a_mn else a[:, :k]
+    bv = b[b_k0:b_k0 + k] if b_mn else b[:, b_k0:b_k0 + k].t()
+    return av, bv, k
+
+
+def gemm_bf16_ref(a, b, *, a_mn=False, b_mn=True, k=None, b_k0=0,
+                  bias=None, out_dtype=torch.float32, splits=1):
+    """Plain version of `gemm_bf16`: each k-slice's product in float32
+    (plus the bias, in each), rounded to out_dtype."""
+    av, bv, k = gemm_operands(a, b, a_mn, b_mn, k, b_k0)
+    av, bv = av.float(), bv.float()
+    bk = GEMM_TILE[2]
+    ks = -(-(-(-k // bk)) // splits) * bk
+    parts = torch.stack([av[:, z * ks:(z + 1) * ks] @ bv[z * ks:(z + 1) * ks]
+                         for z in range(splits)])
+    if bias is not None:
+        parts = parts + bias
+    parts = parts.to(out_dtype)
+    return parts if splits > 1 else parts[0]
+
+
+def gemm_bf16(a, b, *, a_mn=False, b_mn=True, k=None, b_k0=0, bias=None,
+              out_dtype=torch.float32, splits=1):
+    """The bf16 product of kernels 1 and 3 alone (the card tests and
+    chip_smoke.py hold it against torch.matmul; the LSTM kernels call it
+    inside the library): C [M, N] = A . B (+ bias [N] f32) with float32
+    sums, in out_dtype (bf16 or float32), or with splits > 1 the
+    [splits, M, N] float32 partials of k-slices as gemm_plan cuts them.
+    a, b: 2-D bf16, read as they lie: A = a[:, :K] (a_mn False, a [M, >=K])
+    or a[:K]^T (a_mn, a [>=K, M]); B = b[b_k0:b_k0+K] (b_mn, b [rows, N])
+    or b[:, b_k0:b_k0+K]^T (b [N, cols]).  K defaults to all of B past
+    b_k0.  Each row must be whole 16-byte units (a multiple of 8 values)
+    at a 16-byte aligned base, else the kernel raises."""
+    if a.device.type == "cpu":
+        return gemm_bf16_ref(a, b, a_mn=a_mn, b_mn=b_mn, k=k, b_k0=b_k0,
+                             bias=bias, out_dtype=out_dtype, splits=splits)
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or \
+                not t.is_contiguous() or t.device != a.device:
+            raise ValueError(f"gemm_bf16: {name} must be contiguous 2-D bf16")
+    av, bv, k = gemm_operands(a, b, a_mn, b_mn, k, b_k0)
+    m, n = av.shape[0], bv.shape[1]
+    if av.shape[1] != k or bv.shape[0] != k or b_k0 < 0:
+        raise ValueError(f"gemm_bf16: a or b holds less than K={k} past "
+                         f"b_k0={b_k0}")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (n,)):
+        raise ValueError("gemm_bf16: bias must be float32 [N]")
+    shape = (splits, m, n) if splits > 1 else (m, n)
+    out = torch.empty(shape, dtype=out_dtype, device=a.device)
+    err = build.load().gemm_bf16(
+        a.data_ptr(), int(a_mn), a.shape[1], b.data_ptr(), int(b_mn),
+        b.shape[1], b_k0, out.data_ptr(), int(out_dtype == torch.bfloat16),
+        _ptr(bias), m, n, k, splits,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, "gemm_bf16")
+    return out
+
+
+def _pad_scratch(ten: torch.Tensor, rows: int, cols: int,
+                 always: bool = False) -> Optional[torch.Tensor]:
+    """Scratch [rows, cols rounded up to 8] bf16 for the zero-padded copy
+    of a product operand that the kernel's tensor maps need (its rows of
+    `cols` values not whole 16-byte units, or its base not 16-byte
+    aligned; `always` for an f32 m, which the copy rounds), else None."""
+    if not always and cols % 8 == 0 and ten.data_ptr() % 16 == 0:
+        return None
+    return torch.empty((rows, -(-cols // 8) * 8), dtype=torch.bfloat16,
+                       device=ten.device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
 
 
 def lstm_direction_bwd(
@@ -474,15 +611,24 @@ def lstm_direction_bwd(
         for ten in (dw_x, dw_m, dbph):
             ten.zero_()
     else:
-        n_tiles = -(-4 * h // 64)
-        zx = _k_slices(-(-d // 64) * n_tiles, t_max * b)
-        zm = _k_slices(-(-h // 64) * n_tiles, (t_max - 1) * b)
+        tb = t_max * b
+        zx = gemm_plan(d, 4 * h, tb).splits
+        zm = gemm_plan(h, 4 * h, tb - b).splits
         scratch = dict(
             dgifo=torch.empty((t_max, b, 4 * h), dtype=cdt, device=dev),
             rows=torch.empty((b, 7 * h), dtype=f32, device=dev),
             wx=torch.empty((zx, d, 4 * h), dtype=f32, device=dev),
             wm=torch.empty((zm, h, 4 * h), dtype=f32, device=dev),
         )
+        # the products' operands as their tensor maps take them: padded
+        # bf16 copies where a row is not whole 16-byte units, and m_prev
+        # (rows [0, T-1)) in bf16 where the state is f32
+        pads = [None] * 4
+        if bf16:
+            pads = [_pad_scratch(x, tb, d),
+                    _pad_scratch(scratch["dgifo"], tb, 4 * h),
+                    _pad_scratch(m, tb - b, h, always=sdt == f32),
+                    _pad_scratch(w_x, d, 4 * h)]
         p = launch.bwd
         wsl = bwd_weight_slices(w_m, p, bf16)
         err = lib.lstm_bwd(
@@ -491,7 +637,8 @@ def lstm_direction_bwd(
             ph.data_ptr(), dx.data_ptr(), dw_x.data_ptr(), dw_m.data_ptr(),
             dbph.data_ptr(), scratch["dgifo"].data_ptr(),
             scratch["rows"].data_ptr(), scratch["wx"].data_ptr(),
-            scratch["wm"].data_ptr(), t_max, b, d, h, int(bf16),
+            scratch["wm"].data_ptr(), *map(_ptr, pads), t_max, b, d, h,
+            int(bf16),
             int(sdt == torch.bfloat16), p.cluster, p.rows, p.units, p.kres,
             zx, zm, torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -168,7 +168,8 @@ def test_lstm_scan_kernels_match_plain(dev, h):
 
 def test_smem_formulas_match_the_library(dev):
     """The host's shared-memory arithmetic (the route choice, the cluster
-    plans of kernels 1 and 3, kernel 2's table) is the kernels' own."""
+    plans of kernels 1 and 3, kernel 2's table, the product kernel's
+    ring) is the kernels' own."""
     lib = build.load()
     for b, h in ((8, 320), (128, 320), (8, 640), (128, 640), (20, 1024),
                  (3, 32)):
@@ -191,6 +192,9 @@ def test_smem_formulas_match_the_library(dev):
     for mp, k in ((128, 64), (4096, 512), (16384, 512), (16384, 16384)):
         assert lib.dedup_prune_smem_bytes(mp, k) == \
             beam_cuda.smem_bytes(mp, k)
+    # the product kernel's ring of stages, its alignment slack and barriers
+    assert lib.gemm_bf16_smem_bytes() == lstm_cuda.GEMM_SMEM_BYTES
+    assert lstm_cuda.GEMM_SMEM_BYTES <= lstm_cuda.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("b,h", [(8, 320), (128, 320), (8, 640), (128, 640)])
@@ -338,6 +342,125 @@ def test_lstm_bwd_kernel_is_deterministic(dev, dtype, b, h):
                                   else torch.int32),
                            b2.view(torch.int16 if b2.dtype == torch.bfloat16
                                    else torch.int32))
+
+
+@pytest.mark.parametrize("d,h", [(44, 36), (45, 37), (1, 5)])
+@pytest.mark.parametrize("b", [3, 20])
+def test_lstm_kernels_at_widths_the_tensor_maps_refuse(dev, d, h, b):
+    """bf16 kernels 1 and 3 where a product operand's rows are not whole
+    16-byte units (D or 4H not a multiple of 8, H not one for m) or m is
+    f32 (state_bf16 off): the zero-padded copies and the cast, against the
+    plain versions at the tolerances of test_lstm_kernel_shapes and
+    bwd_close."""
+    args = shape_args(dev, torch.bfloat16, b, h, d=d, seed=d + h)
+    gm = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (9, b, h)).astype(np.float32)).to(dev)
+    for sb in (False, True):
+        got = lstm_cuda.lstm_direction(**args, state_bf16=sb,
+                                       with_residuals=True)
+        want = lstm_cuda.lstm_direction_ref(**args, state_bf16=sb,
+                                            with_residuals=True)
+        for name, g, w in zip(("m", "c", "gates"), got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-3, msg=f"{name} sb={sb}")
+        m, c, gates = got
+        inp = dict(x=args["x"], mask=args["mask"], gates=gates, c=c, m=m,
+                   gm=gm.to(m.dtype), w_x=args["w_x"], w_m=args["w_m"],
+                   ph=args["ph"])
+        for name, g, w in zip(("dx", "dw_x", "dw_m", "db", "dph"),
+                              lstm_cuda.lstm_direction_bwd(**inp),
+                              lstm_cuda.lstm_direction_bwd_ref(**inp)):
+            bwd_close(f"{name} sb={sb}", g, w, True)
+
+
+def product_close(name, got, want):
+    """|got - want| <= 1e-3 * max(1, max|want|) + 1e-2 * |want|: bf16
+    operands with float32 sums against torch.matmul of their float32
+    copies, a sum in another order (and, for a bf16 C, one rounding)."""
+    assert got.shape == want.shape, name
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all(), name
+    err = (g - w).abs()
+    scale = max(1.0, float(w.abs().max()))
+    worst = float((err / (1e-3 * scale + 1e-2 * w.abs())).max())
+    assert worst <= 1.0, f"{name}: max abs err {float(err.max())}, " \
+        f"{worst} of the tolerance"
+
+
+# (M, N, K, b_k0, bias, C dtype, splits): ragged M, N and K, K below one
+# k step, a start row in B (dW_m's), bias, a bf16 C and k-splits
+GEMM_CASES = [
+    (200, 136, 200, 0, False, torch.float32, 1),
+    (200, 136, 200, 0, True, torch.float32, 1),
+    (200, 136, 200, 0, False, torch.bfloat16, 1),
+    (72, 264, 1000, 24, False, torch.float32, 3),
+    (72, 264, 1000, 0, True, torch.float32, 2),
+    (8, 8, 8, 8, False, torch.float32, 1),
+    (264, 72, 40, 0, True, torch.bfloat16, 1),
+]
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(False, True), (True, True),
+                                       (False, False), (True, False)])
+@pytest.mark.parametrize("case", GEMM_CASES)
+def test_gemm_bf16_matches_matmul(dev, a_mn, b_mn, case):
+    """The product kernel alone in all four operand layouts (kernel 1's
+    projection: A k-contiguous, B n-contiguous; dW_x and dW_m: A
+    m-contiguous; dx: both k-contiguous) against torch.matmul of the
+    operands' float32 copies, per k-slice (`product_close`)."""
+    m, n, k, k0, with_bias, out_dtype, splits = case
+    rng = np.random.default_rng(m + n + k)
+    f = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(
+        np.float32)).to(dev)
+    a = f(*((k, m) if a_mn else (m, k))).to(torch.bfloat16)
+    b = f(*((k0 + k, n) if b_mn else (n, k0 + k))).to(torch.bfloat16)
+    bias = f(n) if with_bias else None
+    kw = dict(a_mn=a_mn, b_mn=b_mn, b_k0=k0, bias=bias, out_dtype=out_dtype,
+              splits=splits)
+    got = lstm_cuda.gemm_bf16(a, b, **kw)
+    av = (a.t() if a_mn else a).float()
+    bv = (b[k0:] if b_mn else b[:, k0:].t()).float()
+    ks = build.load().gemm_bf16_kslice(k, splits)
+    want = torch.stack([av[:, z * ks:(z + 1) * ks] @ bv[z * ks:(z + 1) * ks]
+                        for z in range(splits)])
+    if bias is not None:
+        want = want + bias
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    product_close(f"{case}", got, want if splits > 1 else want[0])
+    cpu = lstm_cuda.gemm_bf16(a.cpu(), b.cpu(), **{
+        **kw, "bias": bias.cpu() if bias is not None else None})
+    product_close(f"{case} cpu", cpu, want.cpu() if splits > 1
+                  else want[0].cpu())
+
+
+def test_gemm_bf16_at_librispeech(dev):
+    """Kernel 3's dW_x at the LibriSpeech training shape (D=1280, H=640,
+    T*B=98,304, gemm_plan's split, summed in order) and kernel 1's
+    projection with its bias, against torch.matmul of float32 copies."""
+    tb, d, g = 98304, 1280, 2560
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((tb, d), generator=gen, device=dev).sub_(0.5).bfloat16()
+    dg = torch.rand((tb, g), generator=gen, device=dev).sub_(0.5).bfloat16()
+    plan = lstm_cuda.gemm_plan(d, g, tb)
+    got = lstm_cuda.gemm_bf16(x, dg, a_mn=True, splits=plan.splits)
+    want = x.float().t() @ dg.float()
+    product_close("dW_x", got.sum(0), want)
+    w = dg[:d].contiguous()
+    bias = torch.rand(g, generator=gen, device=dev)
+    got = lstm_cuda.gemm_bf16(x[:4096].contiguous(), w, bias=bias)
+    product_close("projection", got, x[:4096].float() @ w.float() + bias)
+
+
+def test_gemm_plan_matches_the_library(dev):
+    """gemm_plan's k per slice is the kernel's (gemm_bf16_kslice), at the
+    training shapes and ragged ones."""
+    lib = build.load()
+    for m, n, k in ((1280, 2560, 98304), (640, 2560, 98176),
+                    (120, 1280, 98304), (320, 1280, 98176), (44, 144, 33),
+                    (200, 300, 1000)):
+        p = lstm_cuda.gemm_plan(m, n, k)
+        assert lib.gemm_bf16_kslice(k, p.splits) == p.kslice
 
 
 def test_direction_above_1024_takes_the_v1_route(dev):

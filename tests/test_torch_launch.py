@@ -204,3 +204,51 @@ def test_fused_launch_still_refuses_past_1024(b, h):
     for d in (1, 640, 1152):
         for bf16 in (True, False):
             assert lstm_cuda.fused_launch(b, d, h, bf16) is None
+
+
+# The product kernel's plan.  Tiles of 128 x 128; k steps of 64; a split
+# product takes the fewest slices (at most 16, each at least 8 k steps)
+# whose tiles x slices CTAs fill 90% of the waves of 132 they take, else
+# the fullest; then k per slice = ceil(steps / slices) whole steps.
+@pytest.mark.parametrize("m,n,k,split,want", [
+    # LibriSpeech (B=128, T=768: T*B = 98,304; 4H = 2560), dW_x at D=1280:
+    # 10 x 20 = 200 tiles, 1536 k steps; 1 or 2 slices fill 76% of their
+    # waves, 3 (600 of 660) 91%: 512 steps a slice
+    (1280, 2560, 98304, True, (200, 3, 32768)),
+    # dW_x at D=360 (first layer): 3 x 20 = 60 tiles, 2 slices: 120 of 132
+    (360, 2560, 98304, True, (60, 2, 49152)),
+    # dW_m at H=640, k = T*B - B = 98,176 (1534 steps): 100 tiles fill 76%
+    # at 1-4 slices, 500 of 528 at 5: ceil(1534/5) = 307 steps
+    (640, 2560, 98176, True, (100, 5, 19648)),
+    # WSJ (4H = 1280): dW_x at D=640, 50 tiles: 5 slices (250 of 264)
+    (640, 1280, 98304, True, (50, 5, 19712)),
+    # dW_x at D=120: 10 tiles: 12 slices (120 of 132)
+    (120, 1280, 98304, True, (10, 12, 8192)),
+    # dW_m at H=320: 30 tiles: 4 slices (120 of 132), 384 steps
+    (320, 1280, 98176, True, (30, 4, 24576)),
+    # the projection and dx are not split: 768 x 20 and 768 x 10 tiles
+    (98304, 2560, 1280, False, (15360, 1, 1280)),
+    (98304, 1280, 2560, False, (7680, 1, 2560)),
+    (98304, 1280, 360, False, (7680, 1, 384)),
+    # WSJ serving projection (B=8, T=512, D=120): 32 x 10 tiles, 2 steps
+    (4096, 1280, 120, False, (320, 1, 128)),
+    # ragged: K below one k step; 16 steps allow 2 slices (6 tiles: the
+    # fuller of 6 and 12 CTAs); 8 steps allow no split
+    (44, 144, 33, True, (2, 1, 64)),
+    (200, 300, 1000, True, (6, 2, 512)),
+    (1000, 1000, 500, True, (64, 1, 512)),
+    (129, 1, 1, True, (2, 1, 64)),
+])
+def test_gemm_plan(m, n, k, split, want):
+    plan = lstm_cuda.gemm_plan(m, n, k, split)
+    assert tuple(plan) == want
+    tiles, z, ks = plan
+    # the slices cover [0, K) exactly once, none empty, whole k steps
+    assert ks % 64 == 0 and (z - 1) * ks < k <= z * ks
+    assert z <= 16 and (z == 1 or ks >= 8 * 64)
+
+
+def test_gemm_smem_bytes():
+    # 4 stages of two 128 x 64 bf16 tiles, 1024 bytes of alignment slack,
+    # a full and an empty barrier per stage
+    assert lstm_cuda.GEMM_SMEM_BYTES == 4 * 32768 + 1024 + 64 <= LIMIT

@@ -275,3 +275,113 @@ def test_cluster_reduce_scatter_model_matches_plain(t, b, d, h):
     for name, g, w in zip(("dx", "dw_x", "dw_m", "db", "dph"), got, want):
         np.testing.assert_allclose(g.reshape(w.shape), w.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def tma_box(arr, rows, cols, r0, c0, h, w):
+    """The [h, w] box at (r0, c0) of a [rows, cols] view of arr as a TMA
+    load reads it: zero where it leaves the view."""
+    out = np.zeros((h, w), np.float32)
+    r1, c1 = min(rows, r0 + h), min(cols, c0 + w)
+    if r1 > r0 and c1 > c0:
+        out[:r1 - r0, :c1 - c0] = arr[r0:r1, c0:c1]
+    return out
+
+
+def tiled_product(a, a_mn, b, b_mn, b_k0, m, n, k, splits, tile):
+    """The product kernel (csrc/gemm_wgmma.cu) in float32 numpy: A(m, k) =
+    a[m, k] or a[k, m] (a_mn), B(k, n) = b[b_k0 + k, n] (b_mn) or b[n,
+    b_k0 + k], read in boxes of its tile with the tensor maps' zero fill
+    past M, N and K; split over k into `splits` slices of whole k steps,
+    each a partial, the partials summed in the order z = 0..Z-1."""
+    bm, bn, bk = tile
+    ks = -(-(-(-k // bk)) // splits) * bk
+    parts = np.zeros((splits, m, n), np.float32)
+    for z in range(splits):
+        for m0 in range(0, m, bm):
+            for n0 in range(0, n, bn):
+                acc = np.zeros((bm, bn), np.float32)
+                for k0 in range(z * ks, min(k, (z + 1) * ks), bk):
+                    at = tma_box(a, k, m, k0, m0, bk, bm).T if a_mn else \
+                        tma_box(a, m, k, m0, k0, bm, bk)
+                    bt = tma_box(b, b_k0 + k, n, b_k0 + k0, n0, bk, bn) \
+                        if b_mn else \
+                        tma_box(b, n, b_k0 + k, n0, b_k0 + k0, bn, bk).T
+                    acc += at @ bt
+                parts[z, m0:m0 + bm, n0:n0 + bn] = \
+                    acc[:min(bm, m - m0), :min(bn, n - n0)]
+    out = parts[0].copy()
+    for z in range(1, splits):
+        out += parts[z]
+    return out
+
+
+@pytest.mark.parametrize("tile,splits", [
+    (lstm_cuda.GEMM_TILE, 1),    # the kernel's tile: one ragged box each way
+    (lstm_cuda.GEMM_TILE, 3),    # K = T*B < one k step: two empty slices
+    ((8, 8, 4), 1),              # many boxes, ragged at every edge
+    ((8, 8, 4), 3),
+    ((16, 8, 8), 5),
+])
+def test_tiled_product_model_matches_plain(tile, splits):
+    """How kernel 3's bf16 products feed the product kernel, which cannot
+    run here: x read as the transposed A of dW_x, m as that of dW_m (rows
+    [0, T*B-B)) against dgifo from row B by the start coordinate, W_x as
+    the transposed B of dx; boxes zero-filled at the edges and k-split
+    partials summed in order.  The numpy model above gives
+    lstm_direction_bwd_ref's dx, dW_x and dW_m, at f32 with D and H not
+    multiples of 8, to float32 rounding in another order (rtol 1e-4 /
+    atol 1e-5, the card tests' f32 tolerance)."""
+    t, b, d, h = 11, 3, 13, 5
+    rng = np.random.default_rng(splits)
+    u = lambda *s: rng.uniform(-0.5, 0.5, s).astype(np.float32)
+    mask = (np.arange(t)[:, None] < np.array([t, 6, 0])[None]).astype(
+        np.float32)
+    x, w_x, bias, w_m, ph = u(t, b, d), u(d, 4 * h), u(4 * h), u(h, 4 * h), \
+        u(3, h)
+    tt = torch.from_numpy
+    m, c, gates = lstm_cuda.lstm_direction_ref(
+        tt(x), tt(mask), tt(w_x), tt(bias), tt(w_m), tt(ph),
+        with_residuals=True)
+    gm = tt(rng.standard_normal((t, b, h)).astype(np.float32))
+    want = lstm_cuda.lstm_direction_bwd_ref(
+        tt(x), tt(mask), gates, c, m, gm, tt(w_x), tt(w_m), tt(ph))
+    dgifo = lstm_cuda.lstm_direction_bwd_rec_ref(
+        tt(x), tt(mask), gates, c, gm, tt(w_m), tt(ph))[0].numpy()
+    tb, g = t * b, 4 * h
+    dg, xs, ms = dgifo.reshape(tb, g), x.reshape(tb, d), \
+        m.numpy().reshape(tb, h)
+    got = {
+        "dx": tiled_product(dg, False, w_x, False, 0, tb, d, g, splits, tile),
+        "dw_x": tiled_product(xs, True, dg, True, 0, d, g, tb, splits, tile),
+        "dw_m": tiled_product(ms, True, dg, True, b, h, g, tb - b, splits,
+                              tile),
+    }
+    for name, w in zip(("dx", "dw_x", "dw_m"), want):
+        np.testing.assert_allclose(got[name].reshape(w.shape), w.numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("a_mn,b_mn", [(False, True), (True, True),
+                                       (False, False), (True, False)])
+@pytest.mark.parametrize("splits,b_k0,bias", [(1, 0, True), (3, 5, False)])
+def test_gemm_bf16_plain_version_matches_model(a_mn, b_mn, splits, b_k0,
+                                               bias):
+    """gemm_bf16 on a CPU tensor (its plain version) in the four operand
+    layouts gives the model's k-slice partials: bf16 operands, float32
+    sums in another order (rtol 1e-5 / atol 1e-5), the bias in each."""
+    m, n, k = 21, 19, 150
+    rng = np.random.default_rng(splits + b_k0)
+    f = lambda *s: torch.from_numpy(rng.uniform(-1, 1, s).astype(
+        np.float32)).bfloat16()
+    a = f(*((k, m) if a_mn else (m, k)))
+    b = f(*((b_k0 + k, n) if b_mn else (n, b_k0 + k)))
+    bv = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)) \
+        if bias else None
+    got = lstm_cuda.gemm_bf16(a, b, a_mn=a_mn, b_mn=b_mn, b_k0=b_k0,
+                              bias=bv, splits=splits)
+    got = got.sum(0) if splits > 1 else got
+    want = tiled_product(a.float().numpy(), a_mn, b.float().numpy(), b_mn,
+                         b_k0, m, n, k, splits, lstm_cuda.GEMM_TILE)
+    if bias:
+        want = want + bv.numpy()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
