@@ -51,7 +51,8 @@ Phases, one JSON line each:
           before and read just after: finite losses, and per step 8
           lstm_fwd, 8 lstm_bwd, 1 ctc_alpha and 1 ctc_beta launches;
           seconds per step and audio-s/s = B*T*0.010 / (s per step);
-          (iii) one step under the profiler.
+          (iii) one step under the profiler, the CTC kernels' device
+          time apart.
   lstm_v1 the v1 route at the LibriSpeech width: (i) kernel lstm_scan_fwd
           vs its plain version (B=128, T=768, H=640, training lengths
           with a length-0 row; m, c, c_raw at the lstm tolerance; the
@@ -74,7 +75,7 @@ Phases, one JSON line each:
           SGD, B=128, T=768, L=200 (S=401), LIBRI_STEPS chained steps:
           finite losses, per step 8 lstm_fwd, 8 lstm_bwd, 1 ctc_alpha, 1
           ctc_beta; s/step and audio-s/s at 0.030 s a frame, and one step
-          under the profiler; (iii) train
+          under the profiler (the CTC kernels apart); (iii) train
           with the recipe's dropout (recurrent 0.2 no_mem_loss and forward
           0.2, per sequence, twiddle): one step on 8 rows on the card and
           on the CPU from the same parameters and generator seed (the same
@@ -90,7 +91,9 @@ Phases, one JSON line each:
           step, and its cluster plan and residency; kernel dedup_prune
           also its device time per launch under torch.profiler, since the
           wrapper's host time is as long as the kernel; kernels ctc_alpha
-          and ctc_beta at the three CTC_CASES shapes), and the library
+          and ctc_beta at the three CTC_CASES shapes, also per step
+          and over 10 launches back to back, with the library's plan
+          (ctc_depth, ctc_smem_bytes)), and the library
           call where one computes the same function (torch's ctc_loss on
           the same logits); at the training shapes kernel lstm_fwd's
           projection and recurrence apart (profiler device ms), and the
@@ -203,6 +206,28 @@ def _cuda_ms(fn, reps: int) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _cuda_ms_back_to_back(fn, reps: int, per: int = 10) -> float:
+    """Median ms per call over `reps` runs of `per` calls back to back,
+    each run timed with CUDA events: the device stays busy, so the host's
+    time to launch a call is not counted while it is shorter than the
+    kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per)
     return statistics.median(times)
 
 
@@ -613,6 +638,8 @@ def phase_lstm_bwd(dev):
 CTC_CASES = {"S201": (TRAIN_T, TRAIN_L, 72, 3),
              "S401": (TRAIN_T, LIBRI_L, LIBRI_V, 3),
              "S1201": (1300, 600, LIBRI_V, 2)}
+# kernels 6 and 7 by name, for their device time in a profiled step
+CTC_KERNELS = ("ctc_alpha_kernel", "ctc_beta_kernel")
 
 
 def ctc_train_inputs(dev, seed: int, case: str = "S201"):
@@ -1106,7 +1133,7 @@ def phase_libri(dev, state):
                     "s_per_step": s_step,
                     "audio_s_per_s": TRAIN_B * TRAIN_T * LIBRI_FRAME_S / s_step,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "profile": _profile(one_step)}
+                    "profile": _profile(one_step, CTC_KERNELS)}
     del st, tx, step, holder
     # (iii) the recipe's dropout: 8 rows card vs CPU with the same masks,
     # then the recipe's num_sequence rows on the card
@@ -1187,7 +1214,7 @@ def phase_train(dev, state):
             "launches_per_step": per_step, "s_per_step": s_step,
             "audio_s_per_s": TRAIN_B * TRAIN_T * 0.010 / s_step,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "profile": _profile(one_step)}
+            "profile": _profile(one_step, CTC_KERNELS)}
 
 
 def _nbytes(tensors) -> int:
@@ -1525,15 +1552,15 @@ def timing_libri(dev):
     return out
 
 
-def _ctc_kernel(which: str, inp, out):
+def _ctc_kernel(which: str, inp, lens, out):
     """One CTC kernel through the library entry itself, so that timing
-    it does not move the wrapper's launch counters."""
+    it does not move the wrapper's launch counters (lens: the frame
+    counts as int32)."""
     import torch
     from eesen_tpu_torch.ops import build
 
     lib = build.load()
     b, t, s = inp["lp_e"].shape
-    lens = inp["logit_lengths"].to(torch.int32)
     stream = torch.cuda.current_stream().cuda_stream
     if which == "alpha":
         err = lib.ctc_alpha(inp["lp_e"].data_ptr(),
@@ -1553,7 +1580,7 @@ def timing_train_shapes(dev):
     torch's ctc_loss (forward; forward + backward) on the same logits,
     labels and lengths as the CTC yardstick."""
     import torch
-    from eesen_tpu_torch.ops import ctc_cuda, lstm_cuda
+    from eesen_tpu_torch.ops import build, ctc_cuda, lstm_cuda
 
     out = {"lstm_fwd_train": {}, "lstm_bwd": {}, "ctc_alpha": {},
            "ctc_beta": {}}
@@ -1598,23 +1625,32 @@ def timing_train_shapes(dev):
                    "beta": (_cuda_ms(lib_fwd_bwd, 10),
                             "F.ctc_loss forward + backward")}
         b, t, s = inp["lp_e"].shape
+        lens = inp["logit_lengths"].to(torch.int32)
+        depth = build.load().ctc_depth(s)
+        plan = dict(ctc_cuda.ctc_plan(s)._asdict(), depth=depth,
+                    smem_bytes=build.load().ctc_smem_bytes(s, depth))
         for which in ("alpha", "beta"):
+            ms = _cuda_ms(lambda: _ctc_kernel(which, inp, lens, buf), 20)
             out[f"ctc_{which}"][case] = dict(
-                ms=_cuda_ms(lambda: _ctc_kernel(which, inp, buf), 20),
+                ms=ms, us_per_step=ms * 1e3 / t,
+                ms_back_to_back=_cuda_ms_back_to_back(
+                    lambda: _ctc_kernel(which, inp, lens, buf), 5),
+                plan=plan,
                 plain_ms=_cuda_ms(refs[which], 2),
                 bound_ms=ctc_bound_ms(inp, which), bound_by="bytes",
                 library_ms=library[which][0], library_call=library[which][1],
                 shape=f"B={b} T={t} S={s}",
             )
-        del inp, lib, buf, lp_g
+        del inp, lib, buf, lp_g, lens
     return out
 
 
-def _profile(fn):
+def _profile(fn, apart=()):
     """fn() unprofiled (wall ms), then under torch.profiler: the device
     time of every CUDA kernel it ran (one stream, so kernels do not
-    overlap), the idle share of the unprofiled wall time, and the
-    kernels with the most device time.  Device fields are None when the
+    overlap), the idle share of the unprofiled wall time, the kernels
+    with the most device time, and the device ms of the kernels whose
+    names hold each string of `apart`.  Device fields are None when the
     profiler records no kernel."""
     import torch
     from torch.autograd import DeviceType
@@ -1638,12 +1674,14 @@ def _profile(fn):
     )
     if not rows:
         return {"wall_ms": wall, "device_busy_ms": None, "idle_share": None,
-                "top": None}
+                "top": None, "apart_ms": None}
     busy = sum(r[1] for r in rows)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:8]]}
+                    for k, ms, n in rows[:8]],
+            "apart_ms": {name: sum(ms for k, ms, _ in rows if name in k)
+                         for name in apart}}
 
 
 def phase_profile(dev, graphs, state):
@@ -1694,7 +1732,8 @@ def kernels_report(state, timing):
          "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
          "max_abs_err": state["ctc"]["max_abs_err"][w],
          **{k: timing[f"ctc_{w}"]["S201"][k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            for k in ("ms", "us_per_step", "ms_back_to_back", "plan",
+                      "plain_ms", "bound_ms", "bound_by", "library_ms",
                       "library_call", "shape")},
          "S401": timing[f"ctc_{w}"]["S401"],
          "S1201": timing[f"ctc_{w}"]["S1201"]}

@@ -31,9 +31,12 @@ SOURCES = (
     "ctc_alpha_beta.cu", "dedup_prune.cu", "cuda_errors.cu",
 )
 LIB_PATH = os.path.join(BUILD_DIR, "libeesen_kernels.so")
+# Opt-in shared memory of a block on the H100, in bytes: the host plans'
+# limit and, through -DEESEN_SMEM_LIMIT, the kernels' own.
+SMEM_LIMIT = 232448
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", f"-DEESEN_SMEM_LIMIT={SMEM_LIMIT}",
 )
 
 _lock = threading.Lock()
@@ -155,6 +158,10 @@ def load() -> ctypes.CDLL:
         lib.ctc_alpha.restype = _I
         lib.ctc_beta.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.ctc_beta.restype = _I
+        lib.ctc_depth.argtypes = [_I]
+        lib.ctc_depth.restype = _I
+        lib.ctc_smem_bytes.argtypes = [_I] * 2
+        lib.ctc_smem_bytes.restype = ctypes.c_longlong
         lib.dedup_prune.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
         lib.dedup_prune.restype = _I
         lib.dedup_prune_smem_bytes.argtypes = [_I] * 2

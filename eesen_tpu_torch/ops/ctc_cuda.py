@@ -13,12 +13,15 @@ beta is the init row at t = len-1 and LOG_ZERO after it.
 kernels (or raises), on a CPU tensor it runs `ctc_alpha_beta_ref`.  The
 kernels take any number of states S whose two shared rows fit in a block
 (a thread owns ceil(S/1024) states, rounded up to a power of two), as the
-TPU wrapper takes any S.
+TPU wrapper takes any S.  Each thread's log-probabilities come through a
+ring of `depth` steps in shared memory filled by cp.async; `ctc_plan` is
+the kernels' launch arithmetic (the library's `ctc_depth` /
+`ctc_smem_bytes`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +33,48 @@ from eesen_tpu_torch.utils.math import (
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 alpha_launches = 0
 beta_launches = 0
+
+MAX_THREADS = 1024      # threads of a block
+MAX_SPT = 32            # states a thread owns at most
+
+
+class CtcPlan(NamedTuple):
+    spt: int            # states a thread owns
+    threads: int        # threads of the block (one block a batch row)
+    depth: int          # slots of the lp ring (1: no ring, a register)
+    smem_bytes: int     # dynamic shared memory of either kernel
+
+
+def states_per_thread(s: int) -> int:
+    """1 up to 1024 states, else ceil(S/1024) rounded up to a power of
+    two; 0 past MAX_SPT."""
+    need = -(-s // MAX_THREADS)
+    spt = 1
+    while spt < need:
+        spt *= 2
+    return spt if spt <= MAX_SPT else 0
+
+
+def smem_bytes(s: int, depth: int) -> int:
+    """The kernels' shared memory (csrc/ctc_alpha_beta.cu
+    ctc_smem_bytes): two exchange rows of S + 2 floats and, at depth >= 2,
+    the ring of `depth` rows of S."""
+    return 4 * (2 * (s + 2) + (depth * s if depth >= 2 else 0))
+
+
+def ctc_plan(s: int) -> Optional[CtcPlan]:
+    """Launch shape of kernels 6 and 7 at S states (the library's
+    ctc_depth): the ring's depth is the largest of 8, 4, 2 whose ring fits
+    beside the two rows in a block's shared memory, else 1 (each state's
+    lp in a register a step ahead) while the rows fit; None where S is
+    refused (the rows do not fit, or a thread would own more than 32
+    states)."""
+    spt, limit = states_per_thread(s), build.SMEM_LIMIT
+    if s < 1 or spt == 0 or smem_bytes(s, 1) > limit:
+        return None
+    depth = next((p for p in (8, 4, 2) if smem_bytes(s, p) <= limit), 1)
+    threads = (-(-s // spt) + 31) // 32 * 32
+    return CtcPlan(spt, threads, depth, smem_bytes(s, depth))
 
 
 def ctc_alpha_ref(

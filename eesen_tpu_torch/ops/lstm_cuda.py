@@ -64,7 +64,7 @@ bwd_launches = 0
 
 MAX_THREADS = 1024
 MAX_H = 1024                  # widest cell the fused route takes
-SMEM_LIMIT = 232448           # bytes of shared memory a block may use
+SMEM_LIMIT = build.SMEM_LIMIT  # bytes of shared memory a block may use
 CLUSTERS = (8, 16)            # kernels 1 and 3: CTAs per cluster, in order
                               # of choice
 ROWS = (16, 32)               # rows per cluster: kernel 1 16 at B <= 16,

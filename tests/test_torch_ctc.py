@@ -13,7 +13,9 @@ from eesen_tpu.ops import ctc as jctc
 from eesen_tpu.ops.ctc_pallas import ctc_alpha_beta_pallas
 from eesen_tpu_torch.ops import ctc as tctc
 from eesen_tpu_torch.ops import ctc_cuda
-from eesen_tpu_torch.utils.math import LOG_ZERO, LOG_ZERO_THRESHOLD
+from eesen_tpu_torch.utils.math import (
+    LOG_ZERO, LOG_ZERO_THRESHOLD, log_add, shift_left, shift_right,
+)
 
 
 def case(seed, t=12, v=7):
@@ -216,3 +218,172 @@ def test_alpha_beta_past_1024_states_match_forward_backward():
         assert (b_j[i, 0, :2] > LOG_ZERO_THRESHOLD).all()
     assert_log_close(a_t.numpy(), a_j)
     assert_log_close(b_t.numpy(), b_j)
+
+
+class FeedModel:
+    """One thread's LpFeed<SPT, P> of csrc/ctc_alpha_beta.cu, with
+    cp.async's semantics: a copy lands only when a wait_group completes its
+    group (groups complete in commit order).  The rows are whole [B, S]
+    rows: only the issuing thread reads a slot entry, so every thread's
+    schedule is this one.  Asserts that each step reads the slot filled for
+    it after that copy landed, that no slot is refilled before its last
+    step was read and a barrier passed, and that every group waited on was
+    committed."""
+
+    def __init__(self, lp, t0, direction, n, depth):
+        self.lp, self.t0, self.dir = lp, t0, direction
+        self.n, self.p = n, depth
+        slots = max(depth, 1)
+        self.data = np.zeros((slots, lp.shape[0]) + lp.shape[2:], lp.dtype)
+        self.holds = [None] * slots       # step last issued into the slot
+        self.landed = [False] * slots
+        self.read_at = [None] * slots     # barrier count at its last read
+        self.groups, self.open_copies = [], []
+        self.done = 0                     # groups complete
+        self.barriers = 0
+        self.issued = self.reads = 0
+
+    def _issue(self):
+        j = self.issued
+        slot = j % self.p
+        if self.holds[slot] is not None:
+            # the step it held was read and, for a shared-memory slot, a
+            # barrier passed since (a register is reloaded in program order)
+            assert self.read_at[slot] is not None, (j, slot)
+            assert self.p == 1 or self.read_at[slot] < self.barriers, (j, slot)
+        self.holds[slot], self.landed[slot] = j, False
+        self.read_at[slot] = None
+        row = self.lp[:, self.t0 + j * self.dir]
+        if self.p == 1:                   # a register load: in place at once
+            self.data[slot], self.landed[slot] = row, True
+        else:
+            self.open_copies.append((slot, j, row))
+        self.issued += 1
+
+    def _commit(self):
+        self.groups.append(self.open_copies)
+        self.open_copies = []
+
+    def barrier(self):
+        self.barriers += 1
+
+    def start(self):
+        if self.p == 1:
+            if self.issued < self.n:
+                self._issue()
+            return
+        for _ in range(self.p - 1):
+            if self.issued < self.n:
+                self._issue()
+            self._commit()
+
+    def take(self, k):
+        if self.p > 1:                    # cp.async.wait_group P-2
+            self.done = max(self.done, len(self.groups) - (self.p - 2))
+            assert self.done <= len(self.groups)
+            for g in range(self.done):
+                for slot, j, row in self.groups[g]:
+                    if self.holds[slot] == j and not self.landed[slot]:
+                        self.data[slot], self.landed[slot] = row, True
+        slot = k % self.p
+        assert self.holds[slot] == k and self.landed[slot], (k, slot)
+        assert self.read_at[slot] is None, (k, slot)
+        self.read_at[slot] = self.barriers
+        self.reads += 1
+        return torch.from_numpy(self.data[slot].copy())
+
+    def advance(self):
+        if self.issued < self.n:
+            self._issue()
+        if self.p > 1:
+            self._commit()
+
+    def finish(self):
+        """Every step issued was read once, and every copy sits in a group
+        that a wait completed."""
+        assert self.reads == self.issued == self.n
+        assert not self.open_copies
+        assert all(not g for g in self.groups[self.done:])
+
+
+def ring_alpha(lp_e, can_skip_f, lens, depth):
+    """Kernel 6's loop over FeedModel: lp[t] for t = 1..T-1 comes from the
+    ring, added last; the arithmetic is ctc_alpha_ref's."""
+    _, t_max, s = lp_e.shape
+    feed = FeedModel(lp_e.numpy(), 1, 1, max(t_max - 1, 0), depth)
+    feed.start()
+    if t_max == 0:
+        feed.finish()
+        return None
+    lane = torch.arange(s)[None, :]
+    out = torch.empty_like(lp_e)
+    a = torch.where(lane <= 1, lp_e[:, 0], LOG_ZERO)
+    out[:, 0] = a
+    for t in range(1, t_max):
+        feed.barrier()
+        lp_t = feed.take(t - 1)
+        prev2 = shift_right(a, 2) + can_skip_f
+        new = lp_t + log_add(log_add(a, shift_right(a, 1)), prev2)
+        a = torch.where(t < lens[:, None], new, a)
+        out[:, t] = a
+        feed.advance()
+    feed.finish()
+    return out
+
+
+def ring_beta(lp_e, can_skip_f, init, lens, depth):
+    """Kernel 7's loop over FeedModel: n = LOG_ZERO + lp[T-1] at t = T-1
+    (the clamped lp[min(t+1, T-1)]), then each step t >= 1 ends with
+    n = beta[t] + lp[t] from the ring, rows T-1 down to 1."""
+    _, t_max, _ = lp_e.shape
+    feed = FeedModel(lp_e.numpy(), t_max - 1, -1, max(t_max - 1, 0), depth)
+    feed.start()
+    if t_max == 0:
+        feed.finish()
+        return None
+    skip_src = torch.where(shift_left(can_skip_f, 2) > LOG_ZERO_THRESHOLD,
+                           0.0, LOG_ZERO)
+    out = torch.empty_like(lp_e)
+    n = torch.full_like(init, LOG_ZERO) + lp_e[:, t_max - 1]
+    for t in range(t_max - 1, -1, -1):
+        feed.barrier()
+        rec = log_add(log_add(n, shift_left(n, 1)),
+                      shift_left(n, 2) + skip_src)
+        b = torch.where(t == lens[:, None] - 1, init,
+                        torch.where(t < lens[:, None] - 1, rec, LOG_ZERO))
+        out[:, t] = b
+        if t >= 1:
+            n = b + feed.take(t_max - 1 - t)
+            feed.advance()
+    feed.finish()
+    return out
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+@pytest.mark.parametrize("t_case", ["0", "1", "P-1", "P", "P+1", "768"])
+def test_ring_schedule_gives_the_plain_recursions(depth, t_case):
+    """The kernels' lp ring, walked as they walk it (alpha upward from
+    t = 1, beta downward with the clamped t+1), at T around the ring's
+    depth: every step reads the row meant for it, no slot is refilled
+    before it was read, the groups waited on were committed; and the
+    recursions driven through it equal ctc_alpha_ref / ctc_beta_ref bit
+    for bit (rows of full length, shorter than the depth, one frame, 0)."""
+    t = {"0": 0, "1": 1, "P-1": max(depth - 1, 1), "P": depth,
+         "P+1": depth + 1, "768": 768}[t_case]
+    rng = np.random.default_rng(depth * 1000 + t)
+    b, s = 5, 9
+    lp_e = torch.from_numpy(-rng.exponential(2.0, (b, t, s)).astype(
+        np.float32))
+    skip = np.where(rng.random((b, s)) < 0.5, 0.0, LOG_ZERO).astype(
+        np.float32)
+    skip[:, :2] = LOG_ZERO
+    skip = torch.from_numpy(skip)
+    _, _, init = tctc._final_states(torch.tensor([4, 3, 1, 0, 2]), s)
+    lens = torch.tensor([t, max(t - 1, 0), min(depth - 1, t), min(1, t), 0])
+    alpha = ring_alpha(lp_e, skip, lens, depth)
+    beta = ring_beta(lp_e, skip, init, lens, depth)
+    if t == 0:
+        assert alpha is None and beta is None
+        return
+    assert torch.equal(alpha, ctc_cuda.ctc_alpha_ref(lp_e, skip, lens))
+    assert torch.equal(beta, ctc_cuda.ctc_beta_ref(lp_e, skip, init, lens))

@@ -518,9 +518,10 @@ def ctc_inputs(dev, b=6, t=40, v=9, l=8, seed=0):
     return [x.to(dev).contiguous() for x in (lp_e, skip, init, ll)]
 
 
-def check_ctc(inp):
+def check_ctc(inp, pad=3):
     """Kernels 6 and 7 against their plain versions: LOG_ZERO positions
-    identical; elsewhere float32 log-space sums, rtol 1e-5 / atol 1e-4."""
+    identical; elsewhere float32 log-space sums, rtol 1e-5 / atol 1e-4.
+    Row `pad` has length 0."""
     before = (ctc_cuda.alpha_launches, ctc_cuda.beta_launches)
     got = ctc_cuda.ctc_alpha_beta(*inp)
     want = ctc_cuda.ctc_alpha_beta_ref(*inp)
@@ -532,9 +533,25 @@ def check_ctc(inp):
         assert torch.equal(g > LOG_ZERO_THRESHOLD, fin)
         torch.testing.assert_close(g[fin], w[fin], rtol=1e-5, atol=1e-4)
     # the padded row: alpha is the t=0 init row, beta all LOG_ZERO
-    assert torch.equal(got[0][3], got[0][3, :1].expand_as(got[0][3]))
-    assert torch.all(got[1][3] == LOG_ZERO)
+    assert torch.equal(got[0][pad], got[0][pad, :1].expand_as(got[0][pad]))
+    assert torch.all(got[1][pad] == LOG_ZERO)
     return got
+
+
+def ring_inputs(dev, b, t, s, lens, seed):
+    """Kernel inputs at any S = 2L+1 without the prep: negative
+    log-probabilities, a random skip mask (never into a blank or s < 2),
+    each row's final states from L labels, and the given frame counts."""
+    rng = np.random.default_rng(seed)
+    lp = -rng.exponential(2.0, (b, t, s)).astype(np.float32)
+    skip = np.where(rng.random((b, s)) < 0.6, 0.0, LOG_ZERO).astype(
+        np.float32)
+    skip[:, :2] = LOG_ZERO
+    skip[:, 0::2] = LOG_ZERO              # blanks are never skipped into
+    _, _, init = _final_states(torch.full((b,), (s - 1) // 2), s)
+    return [torch.from_numpy(lp).to(dev), torch.from_numpy(skip).to(dev),
+            init.to(dev).contiguous(),
+            torch.tensor(lens, dtype=torch.int32, device=dev)]
 
 
 def test_ctc_kernels_match_plain(dev):
@@ -550,6 +567,57 @@ def test_ctc_kernels_past_1024_states(dev, l, t):
     assert inp[0].shape[2] == 2 * l + 1
     alpha, _ = check_ctc(inp)
     assert bool((alpha[0, t - 1, 2 * l - 1:] > LOG_ZERO_THRESHOLD).all())
+
+
+@pytest.mark.parametrize("s", [1, 3, 201, 1201, 4001])
+def test_ctc_kernels_around_the_ring_depth(dev, s):
+    """T at 1, 2 and around the ring's depth P (P-1, P, P+1): a full row,
+    a length-0 row, a one-frame row and rows shorter than P."""
+    p = ctc_cuda.ctc_plan(s).depth
+    for t in sorted({1, 2, p - 1, p, p + 1} - {0}):
+        lens = [t, 0, 1, max(t - 1, 0), min(p - 1, t), min(2, t)]
+        check_ctc(ring_inputs(dev, 6, t, s, lens, seed=s + t), pad=1)
+
+
+@pytest.mark.parametrize("s", [1, 1201, 4001, 5810, 8192, 9684, 14527,
+                               14528, 29054])
+def test_ctc_kernels_at_every_instance(dev, s):
+    """One S for each (states a thread, ring depth) instance the library
+    dispatches, up to the largest accepted S (29054: 32 states a thread,
+    no ring); the first S past it is refused with a CUDA error, as the
+    rows alone no longer fit."""
+    check_ctc(ring_inputs(dev, 3, 5, s, [5, 0, 3], seed=s), pad=1)
+    if s == 29054:
+        bad = ring_inputs(dev, 1, 2, s + 1, [2], seed=0)
+        with pytest.raises(RuntimeError):
+            ctc_cuda.ctc_alpha_beta(*bad)
+
+
+def test_ctc_plan_matches_the_library(dev):
+    """ctc_cuda.ctc_plan's depth and shared memory are the library's
+    ctc_depth / ctc_smem_bytes, across every S the kernels take and
+    past them."""
+    lib = build.load()
+    for s in [*range(1, 30100, 53), 5810, 5811, 9684, 9685, 14527, 14528,
+              29054, 29055, 32768, 32769]:
+        plan = ctc_cuda.ctc_plan(s)
+        assert lib.ctc_depth(s) == (plan.depth if plan else 0), s
+        if plan:
+            assert lib.ctc_smem_bytes(s, plan.depth) == plan.smem_bytes
+        for depth in (1, 2, 4, 8):
+            assert lib.ctc_smem_bytes(s, depth) == \
+                ctc_cuda.smem_bytes(s, depth)
+
+
+def test_ctc_kernels_are_deterministic(dev):
+    """Two runs give equal bits (no atomics; each state's sums in one
+    order)."""
+    for l, t in ((8, 40), (600, 1300)):
+        inp = ctc_inputs(dev, t=t, l=l, seed=l)
+        one = ctc_cuda.ctc_alpha_beta(*inp)
+        two = ctc_cuda.ctc_alpha_beta(*inp)
+        for a, b in zip(one, two):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("m,k", [(100, 64), (4096, 512), (14336, 512)])

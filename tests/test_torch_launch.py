@@ -1,15 +1,16 @@
-"""Host arithmetic of the port's cluster kernels, on hand-computed cases:
-the recurrence plans of kernels 1 and 3 (ops/lstm_cuda.fwd_plan and
-bwd_plan: CTAs per cluster, rows per cluster, units per CTA, resident rows
-of the W_m slice) and their shared memory, kernel 3's W_m slice layout,
-and the route choice's accepted set.  The card tests hold the same
-formulas equal to the library's exported ones."""
+"""Host arithmetic of the port's kernels, on hand-computed cases: the
+recurrence plans of kernels 1 and 3 (ops/lstm_cuda.fwd_plan and bwd_plan:
+CTAs per cluster, rows per cluster, units per CTA, resident rows of the
+W_m slice) and their shared memory, kernel 3's W_m slice layout, the
+route choice's accepted set, the product kernel's split, and kernels 6
+and 7's launch plan (ops/ctc_cuda.ctc_plan).  The card tests hold the
+same formulas equal to the library's exported ones."""
 
 import numpy as np
 import pytest
 import torch
 
-from eesen_tpu_torch.ops import lstm_cuda
+from eesen_tpu_torch.ops import ctc_cuda, lstm_cuda
 
 LIMIT = 232448
 
@@ -252,3 +253,61 @@ def test_gemm_smem_bytes():
     # 4 stages of two 128 x 64 bf16 tiles, 1024 bytes of alignment slack,
     # a full and an empty barrier per stage
     assert lstm_cuda.GEMM_SMEM_BYTES == 4 * 32768 + 1024 + 64 <= LIMIT
+
+
+# Kernels 6 and 7 (ops/ctc_cuda.ctc_plan).  Shared memory: two exchange
+# rows of S+2 floats, plus a ring of `depth` rows of S floats at depth >= 2;
+# the depth is the largest of 8, 4, 2 that fits, else 1 (no ring).
+@pytest.mark.parametrize("s,want", [
+    (1, (1, 32, 8, 4 * (2 * 3 + 8 * 1))),
+    (3, (1, 32, 8, 4 * (2 * 5 + 8 * 3))),
+    # WSJ (L=100): 224 threads, 8-deep ring
+    (201, (1, 224, 8, 4 * (2 * 203 + 8 * 201))),
+    # LibriSpeech (L=200)
+    (401, (1, 416, 8, 4 * (2 * 403 + 8 * 401))),
+    # two states a thread from 1025 on: 601 -> 608 threads
+    (1201, (2, 608, 8, 4 * (2 * 1203 + 8 * 1201))),
+    (4001, (4, 1024, 8, 4 * (2 * 4003 + 8 * 4001))),
+    # the last S with an 8-deep ring (232,416 bytes), then 4, then 2
+    (5810, (8, 736, 8, 232416)),
+    (5811, (8, 736, 4, 4 * (2 * 5813 + 4 * 5811))),
+    (9684, (16, 608, 4, 232432)),
+    (9685, (16, 608, 2, 4 * (2 * 9687 + 2 * 9685))),
+    (14527, (16, 928, 2, 232448)),
+    # no ring fits: one register a state, the rows alone
+    (14528, (16, 928, 1, 4 * 2 * 14530)),
+    # the largest S taken (its rows are 232,448 bytes), and the first past
+    (29054, (32, 928, 1, 232448)),
+    (29055, None),
+    (32769, None),
+])
+def test_ctc_plan(s, want):
+    plan = ctc_cuda.ctc_plan(s)
+    assert (None if plan is None else tuple(plan)) == want
+
+
+def test_ctc_plan_keeps_every_s_it_took():
+    """The accepted set is the one before the ring: a thread owns at most
+    32 states and the two rows of S+2 floats fit; the depth falls to 1
+    exactly where a 2-deep ring no longer fits beside them, and every
+    (states a thread, depth) pair is one the library instantiates
+    (csrc/ctc_alpha_beta.cu `dispatch`)."""
+    pairs = set()
+    for s in range(1, 33000):
+        need = -(-s // 1024)
+        spt = 1 << (need - 1).bit_length()
+        took = spt <= 32 and 2 * (s + 2) * 4 <= LIMIT
+        plan = ctc_cuda.ctc_plan(s)
+        assert (plan is not None) == took, s
+        if plan is None:
+            continue
+        assert plan.spt == spt and plan.threads * spt >= s
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.smem_bytes <= LIMIT
+        assert (plan.depth == 1) == (2 * (s + 2) * 4 + 2 * s * 4 > LIMIT), s
+        if plan.depth < 8:
+            bigger = 2 * plan.depth if plan.depth > 1 else 2
+            assert 2 * (s + 2) * 4 + bigger * s * 4 > LIMIT, s
+        pairs.add((plan.spt, plan.depth))
+    assert pairs == {(1, 8), (2, 8), (4, 8), (8, 8), (8, 4), (16, 4),
+                     (16, 2), (16, 1), (32, 1)}
