@@ -53,21 +53,26 @@ Phases, one JSON line each:
           seconds per step and audio-s/s = B*T*0.010 / (s per step);
           (iii) one step under the profiler, the CTC kernels' device
           time apart.
-  lstm_v1 the v1 route at the LibriSpeech width: (i) kernel lstm_scan_fwd
-          vs its plain version (B=128, T=768, H=640, training lengths
-          with a length-0 row; m, c, c_raw at the lstm tolerance; the
-          gates at the bf16 one against the plain step from the kernel's
-          own carries, and within BWD_REL_L2 of the free-running plain
-          version); (ii) kernel lstm_scan_bwd vs its plain version
-          on those residuals and a random gm (dxw within BWD_DX_TOL and
-          BWD_REL_L2); (iii) the v1 route against the fused route on the
+  lstm_v1 the v1 route at the LibriSpeech width and its own: (i) kernel
+          lstm_scan_fwd vs its plain version (B=128, T=768, H=640 and
+          H=1152, training lengths with a length-0 row; m, c, c_raw at
+          the lstm tolerance and the gates at the bf16 one, each step
+          against the plain step from the kernel's own carries; all four
+          within BWD_REL_L2 of the free-running plain version, whose
+          elementwise error is recorded); (ii) kernel lstm_scan_bwd vs its
+          plain version on those residuals and a random gm (dxw within
+          BWD_DX_TOL and BWD_REL_L2); both on their cluster designs at
+          these shapes; (iii) the v1 route against the fused route on the
           card (D=1280, the same inputs and f32 weights): m at the lstm
           tolerance, the gradients of x, W_x, W_m, bias and peepholes
           within BWD_REL_L2; (iv) the route choice: `_direction_scan` at
           H=1152 (D=1152, B=8, T=64), counters zeroed just before and read
           just after, must launch lstm_scan_fwd and lstm_scan_bwd once and
           lstm_fwd / lstm_bwd never, and match the CPU plain run (m at
-          the lstm tolerance, gradients within BWD_REL_L2).
+          the lstm tolerance, gradients within BWD_REL_L2); (v) the same
+          at H=2688, past both cluster plans' limits: the thread-per-unit
+          designs (m within BWD_REL_L2: at that width a 1e-6 change of x
+          moves the CPU run itself by 2.5x the lstm tolerance).
   libri   the LibriSpeech char model (4 x 640, 360-d input, 30 targets,
           random weights from a seed): (i) serve B=8, T=512 through
           recipes.run.posteriors (8 lstm_fwd launches), log-posteriors
@@ -100,7 +105,10 @@ Phases, one JSON line each:
           product kernel alone (gemm_bf16: event ms, TFLOP/s and bound)
           for kernel 1's projection and kernel 3's three products beside
           torch.matmul of the same bf16 operands;
-          at H=640 also kernels lstm_scan_fwd/bwd (B=128, T=768), kernels
+          kernels lstm_scan_fwd/bwd at B=128, T=768, H=640 and H=1152 (ms
+          and µs a step, design, plan and residency) beside the
+          thread-per-unit design on the same inputs; at H=640
+          also kernels
           lstm_fwd/lstm_bwd at D in {360, 1280} (B=128, T=768, and
           serving B=8, T=512), and the two routes' forward + backward per
           direction-layer at D=1280.
@@ -169,8 +177,11 @@ LEARN_RATE = 4e-5
 LIBRI_D, LIBRI_H, LIBRI_V = 360, 640, 30
 LIBRI_L, LIBRI_STEPS, LIBRI_DROP_B = 200, 3, 20
 LIBRI_FRAME_S = 0.030
-# a direction kernels 1 and 3 cannot take: the v1 route
+# a direction kernels 1 and 3 cannot take: the v1 route, on the cluster
+# designs of kernels 4 and 5; and one past both cluster plans' limits
+# (kernel 4's H <= 2624, kernel 5's H <= 1664): the thread-per-unit designs
 V1_H = 1152
+V1_WIDE_H = 2688
 # card (kernels, state_bf16) vs CPU (plain versions, f32 state as the JAX
 # package's CPU path), bf16 compute: the loss through four layers as the
 # serving check's log-posteriors; the gradients differ by the bf16
@@ -808,15 +819,15 @@ def _close(name, got, ref, rtol, atol):
     return err
 
 
-def scan_inputs(dev, seed: int):
-    """Kernel 4's inputs at B=128, T=768, H=640 (the LibriSpeech width)
-    with the training lengths: xw ~ N(0, 1) as an input projection
-    of LSTM outputs gives, W_m and ph uniform +-0.1 (param_range)."""
+def scan_inputs(dev, seed: int, h: int = LIBRI_H):
+    """Kernel 4's inputs at B=128, T=768 and cell width h (640, the
+    LibriSpeech width, or V1_H) with the training lengths: xw ~ N(0, 1) as
+    an input projection of LSTM outputs gives, W_m and ph uniform +-0.1
+    (param_range)."""
     import torch
 
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-    h = LIBRI_H
     lens = torch.from_numpy(train_lengths()).to(dev)
     mask = (torch.arange(TRAIN_T, device=dev)[:, None]
             < lens[None, :]).float()
@@ -896,10 +907,10 @@ def route_grads(route, x, mask, p, w):
     return m.detach(), g
 
 
-def scan_step_gates(inp, m, c):
-    """The gates of kernel 4's plain step (lstm_scan_fwd_ref) at every
-    step at once, from the given m and c carries one step back (zero at
-    t=0) instead of the plain version's own trajectory."""
+def scan_step(inp, m, c):
+    """Kernel 4's plain step (lstm_scan_fwd_ref's) at every step at once,
+    from the given m and c carries one step back (zero at t=0) instead of
+    the plain version's own trajectory: (m, c, c_raw, gates)."""
     import torch
     from eesen_tpu_torch.ops.lstm_v1_cuda import _shift
 
@@ -914,61 +925,133 @@ def scan_step_gates(inp, m, c):
     f = torch.sigmoid(gifo[..., 2 * h:3 * h] + c_prev * ph[1])
     c_raw = f * c_prev + i * g
     o = torch.sigmoid(gifo[..., 3 * h:] + c_raw * ph[2])
-    return torch.cat([g, i, f, o], dim=-1).to(bf)
+    mt = inp["mask"][:, :, None]
+    return (o * torch.tanh(c_raw) * mt + m_prev * (1.0 - mt),
+            c_raw * mt + c_prev * (1.0 - mt), c_raw,
+            torch.cat([g, i, f, o], dim=-1).to(bf))
 
 
-def phase_lstm_v1(dev, state):
-    """Kernels 4 and 5 against their plain versions, the v1 route against
-    the fused route, and the route choice at H=1152."""
-    import torch
-    from eesen_tpu_torch.models import bilstm
+def scan_designs(b: int, h: int):
+    """Kernels 4 and 5's designs and plans at (b, h) (host arithmetic)."""
     from eesen_tpu_torch.ops import lstm_v1_cuda
 
-    out = {}
-    # (i) kernel 4 vs its plain version
-    inp = scan_inputs(dev, SEED + 21)
+    return {k: {"design": la.design, "plan": list(la.plan)}
+            for k, la in (("fwd", lstm_v1_cuda.fwd_launch(b, h)),
+                          ("bwd", lstm_v1_cuda.bwd_launch(b, h)))}
+
+
+def scan_checks(dev, h: int, seed: int):
+    """(i) kernel 4 vs its plain version and (ii) kernel 5 vs its plain
+    version on kernel 4's residuals, at B=128, T=768, cell width h."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    # (i) kernel 4 vs its plain version.  Over 768 steps two f32
+    # trajectories of this recurrence drift apart by bf16 flips of the
+    # recurrent operand: the plain version against itself on xw * (1 +
+    # 1e-6) reaches 0.69x the lstm tolerance in m at H=640 and 1.54x in c
+    # at H=1152 (the gates 0.88x and 1.66x of theirs).  So each step's m,
+    # c, c_raw and gates are held elementwise against the plain step from
+    # the kernel's own carries, and the free-running plain version in
+    # relative L2 (its elementwise error recorded)
+    inp = scan_inputs(dev, seed, h)
     got = lstm_v1_cuda.lstm_scan_fwd(**inp)
     ref = lstm_v1_cuda.lstm_scan_fwd_ref(**inp)
-    fwd_err = {}
-    for name, g, r in zip(("m", "c", "c_raw"), got, ref):
-        fwd_err[name] = _close(f"lstm_scan_fwd {name}", g, r, LSTM_RTOL,
-                               LSTM_ATOL)
-    # the gates: over 768 steps the two f32 trajectories drift apart by
-    # bf16 flips of the recurrent operand (m, c within the lstm
-    # tolerance), which moves a small gate by a few bf16 steps; so each
-    # step's gates are held elementwise against the plain step from the
-    # kernel's own carries, and the free-running ones in relative L2
-    gates_tf = scan_step_gates(inp, got[0], got[1])
-    fwd_err["gates"] = _close("lstm_scan_fwd gates", got[3], gates_tf,
-                              GATES_RTOL, GATES_ATOL)
-    fwd_err["gates_free_running"] = float(
-        (got[3].float() - ref[3].float()).abs().max())
-    gates_l2 = _rel_l2(got[3], ref[3])
-    if gates_l2 > BWD_REL_L2:
-        raise AssertionError(f"lstm_scan_fwd gates: relative L2 {gates_l2}")
-    del ref, gates_tf
+    step = scan_step(inp, got[0], got[1])
+    fwd_err, free_err, free_l2 = {}, {}, {}
+    for name, g, r, st, tol in zip(
+            ("m", "c", "c_raw", "gates"), got, ref, step,
+            [(LSTM_RTOL, LSTM_ATOL)] * 3 + [(GATES_RTOL, GATES_ATOL)]):
+        fwd_err[name] = _close(f"H={h} lstm_scan_fwd {name}", g, st, *tol)
+        free_err[name] = float((g.float() - r.float()).abs().max())
+        free_l2[name] = _rel_l2(g, r)
+    if max(free_l2.values()) > BWD_REL_L2:
+        raise AssertionError(f"H={h} lstm_scan_fwd: relative L2 {free_l2}")
+    del ref, step
     # (ii) kernel 5 vs its plain version on kernel 4's residuals
     m, c, c_raw, gates = got
-    gm = torch.from_numpy(np.random.default_rng(SEED + 22).standard_normal(
+    gm = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         m.shape).astype(np.float32)).to(dev)
     res = dict(mask=inp["mask"], gates=gates, c_raw=c_raw, c=c, gm=gm,
                w_m=inp["w_m"], ph=inp["ph"])
     dxw = lstm_v1_cuda.lstm_scan_bwd(**res)
     dxw_ref = lstm_v1_cuda.lstm_scan_bwd_ref(**res)
-    bwd_err = _close("lstm_scan_bwd dxw", dxw, dxw_ref, *BWD_DX_TOL)
+    bwd_err = _close(f"H={h} lstm_scan_bwd dxw", dxw, dxw_ref, *BWD_DX_TOL)
     bwd_l2 = _rel_l2(dxw, dxw_ref)
     if bwd_l2 > BWD_REL_L2:
-        raise AssertionError(f"lstm_scan_bwd dxw: relative L2 {bwd_l2}")
-    out["kernels"] = {"shape": "B=128 T=768 H=640", "fwd_max_abs_err": fwd_err,
-                      "gates_rel_l2": gates_l2,
-                      "bwd_max_abs_err": bwd_err, "bwd_rel_l2": bwd_l2,
-                      "fwd_tol": {"m_c_craw": (LSTM_RTOL, LSTM_ATOL),
-                                  "gates": (GATES_RTOL, GATES_ATOL)},
-                      "bwd_tol": BWD_DX_TOL, "rel_l2_tol": BWD_REL_L2}
-    state["v1_err"] = {"fwd": max(v for k, v in fwd_err.items()
-                                  if k != "gates_free_running"),
-                       "bwd": bwd_err}
-    del got, res, dxw, dxw_ref, m, c, c_raw, gates, gm, inp
+        raise AssertionError(f"H={h} lstm_scan_bwd dxw: relative L2 {bwd_l2}")
+    return {"shape": f"B={TRAIN_B} T={TRAIN_T} H={h}",
+            "designs": scan_designs(TRAIN_B, h), "fwd_max_abs_err": fwd_err,
+            "fwd_free_running_max_abs_err": free_err,
+            "fwd_free_running_rel_l2": free_l2,
+            "bwd_max_abs_err": bwd_err, "bwd_rel_l2": bwd_l2,
+            "fwd_tol": {"m_c_craw": (LSTM_RTOL, LSTM_ATOL),
+                        "gates": (GATES_RTOL, GATES_ATOL)},
+            "bwd_tol": BWD_DX_TOL, "rel_l2_tol": BWD_REL_L2}
+
+
+def route_vs_cpu(dev, h: int, seed: int, m_elementwise: bool = True):
+    """One direction at width h (D=h, B=8, T=64, a length-0 row) through
+    `_direction_scan` on the card, counters zeroed just before and read
+    just after, and on the CPU (plain versions): the launches, m at the
+    lstm tolerance (or, without m_elementwise, within BWD_REL_L2, its
+    elementwise error recorded) and the gradients within BWD_REL_L2."""
+    import torch
+    from eesen_tpu_torch.models import bilstm
+
+    cfg = bilstm.BiLstmConfig(input_dim=h, cell_dim=h)
+    p = direction_params(h, h, seed, "cpu")
+    lens = torch.tensor((64, 61, 50, 43, 33, 20, 9, 0))
+    mask = (torch.arange(64)[:, None] < lens[None, :]).float()
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1, 1, (64, 8, h)).astype(np.float32))
+    runs = []                           # the card's run, then the CPU's
+    for where in (dev, torch.device("cpu")):
+        pp = {k: v.to(where).requires_grad_() for k, v in p.items()}
+        reset_counters()
+        m = bilstm._direction_scan(pp, x.to(where), mask.to(where), cfg)
+        grads = torch.autograd.grad(m.float().sum(), list(pp.values()))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            launched = counters()
+        runs.append((m.detach().float().cpu(), [g.cpu() for g in grads]))
+    want = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_scan_fwd": 1,
+            "lstm_scan_bwd": 1}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"H={h} direction launched {launched}")
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    if m_elementwise:
+        m_err = _close(f"H={h} card vs cpu m", m_card, m_cpu, LSTM_RTOL,
+                       LSTM_ATOL)
+    else:
+        m_err = float((m_card - m_cpu).abs().max())
+    m_l2 = _rel_l2(m_card, m_cpu)
+    g_l2 = {k: _rel_l2(g, c) for k, g, c in zip(p, g_card, g_cpu)}
+    if max(m_l2, *g_l2.values()) > BWD_REL_L2:
+        raise AssertionError(f"H={h} card vs cpu: m {m_l2}, gradients "
+                             f"{g_l2} (relative L2)")
+    return launched, {"shape": f"B=8 T=64 D={h} H={h}",
+                      "designs": scan_designs(8, h), "launches": launched,
+                      "m_max_abs_err_vs_cpu": m_err,
+                      "m_elementwise": m_elementwise, "m_rel_l2_vs_cpu": m_l2,
+                      "grad_rel_l2_vs_cpu": g_l2}
+
+
+def phase_lstm_v1(dev, state):
+    """Kernels 4 and 5 against their plain versions at H=640 and H=1152,
+    the v1 route against the fused route, the route choice at H=1152, and
+    a direction past the cluster plans' limits."""
+    import torch
+
+    out = {}
+    # (i), (ii) at the LibriSpeech width and at the route's own
+    errs = {}
+    for h, seed in ((LIBRI_H, SEED + 21), (V1_H, SEED + 25)):
+        out[f"kernels_h{h}"] = chk = scan_checks(dev, h, seed)
+        errs[h] = {"fwd": max(chk["fwd_max_abs_err"].values()),
+                   "bwd": chk["bwd_max_abs_err"]}
+        torch.cuda.empty_cache()
+    state["v1_err"] = errs
     # (iii) the two routes on the card, the same inputs and weights
     x, mask, p, w = route_inputs(dev, SEED + 23)
     m_f, g_f = route_grads(fused_route, x, mask, p, w)
@@ -982,37 +1065,17 @@ def phase_lstm_v1(dev, state):
     out["route_vs_fused"] = {"shape": "B=128 T=768 D=1280 H=640", **route}
     del x, mask, p, w, m_f, g_f, m_v, g_v
     torch.cuda.empty_cache()
-    # (iv) the route choice: a direction kernels 1 and 3 cannot take
-    cfg = bilstm.BiLstmConfig(input_dim=V1_H, cell_dim=V1_H)
-    p = direction_params(V1_H, V1_H, SEED + 24, "cpu")
-    lens = torch.tensor((64, 61, 50, 43, 33, 20, 9, 0))
-    mask = (torch.arange(64)[:, None] < lens[None, :]).float()
-    x = torch.from_numpy(np.random.default_rng(SEED + 24).uniform(
-        -1, 1, (64, 8, V1_H)).astype(np.float32))
-    runs = []                           # the card's run, then the CPU's
-    for where in (dev, torch.device("cpu")):
-        pp = {k: v.to(where).requires_grad_() for k, v in p.items()}
-        reset_counters()
-        m = bilstm._direction_scan(pp, x.to(where), mask.to(where), cfg)
-        grads = torch.autograd.grad(m.float().sum(), list(pp.values()))
-        if where.type == "cuda":
-            torch.cuda.synchronize()
-            state["v1_launches"] = counters()
-        runs.append((m.detach().float().cpu(), [g.cpu() for g in grads]))
-    launched = state["v1_launches"]
-    want = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_scan_fwd": 1,
-            "lstm_scan_bwd": 1}
-    if any(launched[k] != v for k, v in want.items()):
-        raise AssertionError(f"H={V1_H} direction launched {launched}")
-    (m_card, g_card), (m_cpu, g_cpu) = runs
-    m_err = _close("H=1152 card vs cpu m", m_card, m_cpu, LSTM_RTOL,
-                   LSTM_ATOL)
-    g_l2 = {k: _rel_l2(g, c) for k, g, c in zip(p, g_card, g_cpu)}
-    if max(g_l2.values()) > BWD_REL_L2:
-        raise AssertionError(f"H={V1_H} card vs cpu gradients {g_l2}")
-    out["route_choice"] = {"shape": f"B=8 T=64 D={V1_H} H={V1_H}",
-                           "launches": launched, "m_max_abs_err_vs_cpu": m_err,
-                           "grad_rel_l2_vs_cpu": g_l2}
+    # (iv) the route choice: a direction kernels 1 and 3 cannot take, on
+    # the cluster designs of kernels 4 and 5
+    state["v1_launches"], out["route_choice"] = route_vs_cpu(
+        dev, V1_H, SEED + 24)
+    # (v) a direction past both cluster plans' limits: the thread-per-unit
+    # designs.  At this width the recurrence amplifies rounding: the CPU
+    # plain run against itself on x * (1 + 1e-6) moves m by 2.5x the lstm
+    # tolerance (relative L2 1.5e-3, the gradients 5.5e-3), so m is held
+    # in relative L2 like the gradients
+    _, out["route_wide"] = route_vs_cpu(dev, V1_WIDE_H, SEED + 26,
+                                        m_elementwise=False)
     return out
 
 
@@ -1486,35 +1549,109 @@ def scan_bound(inp, outs, valid_steps: int):
                                        else "bytes")
 
 
-def timing_libri(dev):
-    """At the LibriSpeech width (H=640): kernels 4 and 5 at B=128,
-    T=768; kernels 1 and 3 per direction-layer at D in {360, 1280},
-    B=128, T=768 (kernel 1 with residuals), and kernel 1 serving B=8,
-    T=512; then the two routes, forward + backward through autograd, per
-    direction-layer at D=1280 (recorded only: they do not decide the
-    route)."""
+def _thread_per_unit(which: str, args, outs) -> None:
+    """Kernel 4 or 5 in its thread-per-unit design (csrc/lstm_scan_*.cu,
+    which the route runs at the widths its cluster plans refuse) through
+    the library entry itself, at any width it takes, so that timing it
+    beside the cluster design does not move the wrapper's launch
+    counters.  Kernel 5 transposes W_m per call, as its wrapper does for
+    that design."""
     import torch
-    from eesen_tpu_torch.ops import lstm_cuda, lstm_v1_cuda
+    from eesen_tpu_torch.ops import build, lstm_v1_cuda
+
+    lib = build.load()
+    h = args["w_m"].shape[0]
+    t_max, b = args["mask"].shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if which == "fwd":
+        shape = lstm_v1_cuda._launch_shape(which, h,
+                                           lstm_v1_cuda.fwd_smem_bytes)
+        ptrs = [args[k].data_ptr() for k in ("xw", "mask", "w_m", "ph")]
+        err = lib.lstm_scan_fwd(*ptrs, *(o.data_ptr() for o in outs),
+                                t_max, b, h, *shape, stream)
+    else:
+        shape = lstm_v1_cuda._launch_shape(which, h,
+                                           lstm_v1_cuda.bwd_smem_bytes)
+        wm_t = args["w_m"].t().contiguous()
+        ptrs = [args[k].data_ptr() for k in ("mask", "gates", "c_raw", "c",
+                                             "gm")]
+        err = lib.lstm_scan_bwd(*ptrs, wm_t.data_ptr(),
+                                args["ph"].data_ptr(), outs[0].data_ptr(),
+                                t_max, b, h, *shape, stream)
+    build.check(err, f"thread-per-unit lstm_scan_{which}")
+
+
+def scan_residency(b: int, h: int):
+    """Kernels 4 and 5's designs at (b, h) and, for a cluster design, how
+    many of its clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) and whether all are resident."""
+    from eesen_tpu_torch.ops import build
+
+    lib = build.load()
+    out = scan_designs(b, h)
+    for k, entry in (("fwd", lambda *p: lib.lstm_fwd_max_clusters(*p, 1)),
+                     ("bwd", lib.lstm_scan_bwd_max_clusters)):
+        if out[k]["design"] == "cluster":
+            plan = out[k]["plan"]
+            active = entry(b, h, *plan)
+            out[k].update(clusters=-(-b // plan[1]),
+                          max_active_clusters=active,
+                          one_wave=active >= -(-b // plan[1]))
+    return out
+
+
+def scan_timing(dev, h: int, seed: int, valid: int):
+    """Kernels 4 and 5 at B=128, T=768 and width h, on (i)'s inputs: event
+    ms of one launch (median) and per step, the bound, the plain version's
+    ms, and the thread-per-unit design's ms on the same inputs in the same
+    run; with the designs, plans and residency."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    inp = scan_inputs(dev, seed, h)
+    res = lstm_v1_cuda.lstm_scan_fwd(**inp)
+    bwd = dict(mask=inp["mask"], gates=res[3], c_raw=res[2], c=res[1],
+               gm=torch.randn_like(res[0]), w_m=inp["w_m"], ph=inp["ph"])
+    dxw = lstm_v1_cuda.lstm_scan_bwd(**bwd)
+    plan = scan_residency(TRAIN_B, h)
+    out = {}
+    for k, fn, ref, args, outs in (
+            ("fwd", lstm_v1_cuda.lstm_scan_fwd, lstm_v1_cuda.lstm_scan_fwd_ref,
+             inp, res),
+            ("bwd", lstm_v1_cuda.lstm_scan_bwd, lstm_v1_cuda.lstm_scan_bwd_ref,
+             bwd, [dxw])):
+        bound, by = scan_bound(args, outs, valid)
+        ms = _cuda_ms(lambda: fn(**args), 3)
+        scratch = [torch.empty_like(o) for o in outs]
+        per_unit_ms = _cuda_ms(lambda: _thread_per_unit(k, args, scratch), 3)
+        out[k] = dict(ms=ms, us_per_step=ms * 1e3 / TRAIN_T,
+                      thread_per_unit_ms=per_unit_ms,
+                      thread_per_unit_us_per_step=per_unit_ms * 1e3 / TRAIN_T,
+                      plain_ms=_cuda_ms(lambda: ref(**args), 1),
+                      bound_ms=bound, bound_by=by, **plan[k],
+                      shape=f"B={TRAIN_B} T={TRAIN_T} H={h}")
+        del scratch
+    return out["fwd"], out["bwd"]
+
+
+def timing_libri(dev):
+    """Kernels 4 and 5 at B=128, T=768, H=640 (the LibriSpeech width) and
+    H=1152 (the v1 route's), beside their thread-per-unit design
+    (`scan_timing`); at H=640 kernels 1 and 3 per direction-layer at D in
+    {360, 1280}, B=128, T=768 (kernel 1 with residuals), and kernel 1
+    serving B=8, T=512; then the two routes, forward + backward through
+    autograd, per direction-layer at D=1280 (recorded only: they do not
+    decide the route)."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda
 
     valid = int(train_lengths().sum())
     out = {"lstm_scan_fwd": {}, "lstm_scan_bwd": {}, "lstm_fwd_h640": {},
            "lstm_bwd_h640": {}, "routes_h640": {}}
-    inp = scan_inputs(dev, SEED + 21)
-    res = lstm_v1_cuda.lstm_scan_fwd(**inp)
-    bound, by = scan_bound(inp, res, valid)
-    out["lstm_scan_fwd"]["H640"] = dict(
-        ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_fwd(**inp), 3),
-        plain_ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_fwd_ref(**inp), 1),
-        bound_ms=bound, bound_by=by)
-    m, c, c_raw, gates = res
-    bwd = dict(mask=inp["mask"], gates=gates, c_raw=c_raw, c=c,
-               gm=torch.randn_like(m), w_m=inp["w_m"], ph=inp["ph"])
-    bound, by = scan_bound(bwd, [lstm_v1_cuda.lstm_scan_bwd(**bwd)], valid)
-    out["lstm_scan_bwd"]["H640"] = dict(
-        ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_bwd(**bwd), 3),
-        plain_ms=_cuda_ms(lambda: lstm_v1_cuda.lstm_scan_bwd_ref(**bwd), 1),
-        bound_ms=bound, bound_by=by)
-    del inp, res, bwd, m, c, c_raw, gates
+    for h, seed in ((LIBRI_H, SEED + 21), (V1_H, SEED + 25)):
+        out["lstm_scan_fwd"][f"H{h}"], out["lstm_scan_bwd"][f"H{h}"] = \
+            scan_timing(dev, h, seed, valid)
+        torch.cuda.empty_cache()
     for d in (LIBRI_D, 2 * LIBRI_H):
         fwd, bwd = train_lstm_inputs(d, LIBRI_H, dev, SEED + d + 1, True)
         res = lstm_cuda.lstm_direction(**fwd, state_bf16=True,
@@ -1711,18 +1848,24 @@ def kernels_report(state, timing):
     tl = state["train_launches"]
     train_path = f"train ({TRAIN_STEPS} steps)"
     h640 = {k: timing[f"{k}_h640"] for k in ("lstm_fwd", "lstm_bwd")}
-    scan = {k: timing[f"lstm_scan_{k}"]["H640"] for k in ("fwd", "bwd")}
+    scan = {k: timing[f"lstm_scan_{k}"] for k in ("fwd", "bwd")}
     v1_path = f"v1 route: one H={V1_H} direction, forward + backward"
+    err = state["v1_err"]
     scan_rows = [
         {"name": f"lstm_scan_{k}", "route": "cuda",
-         "source": f"eesen_tpu_torch/csrc/lstm_scan_{k}.cu",
+         "source": src,
+         "wide_source": f"eesen_tpu_torch/csrc/lstm_scan_{k}.cu",
          "replaces": f"eesen_tpu/ops/lstm_pallas.py:{line}",
          "launches": state["v1_launches"][f"lstm_scan_{k}"],
-         "path": v1_path, "max_abs_err": state["v1_err"][k],
-         "ms": scan[k]["ms"], "plain_ms": scan[k]["plain_ms"],
-         "bound_ms": scan[k]["bound_ms"], "bound_by": scan[k]["bound_by"],
-         "library_ms": None, "shape": "B=128 T=768 H=640"}
-        for k, line in (("fwd", 50), ("bwd", 94))
+         "path": v1_path, "max_abs_err": err[LIBRI_H][k],
+         **{f: scan[k]["H640"][f]
+            for f in ("ms", "us_per_step", "thread_per_unit_ms", "plain_ms",
+                      "bound_ms", "bound_by", "design", "plan", "shape")},
+         "library_ms": None,
+         "h1152": {**scan[k][f"H{V1_H}"], "max_abs_err": err[V1_H][k]}}
+        for k, line, src in (
+            ("fwd", 50, "eesen_tpu_torch/csrc/lstm_fwd.cu"),
+            ("bwd", 94, "eesen_tpu_torch/csrc/lstm_bwd.cu"))
     ]
     ctc = [
         {"name": f"ctc_{w}", "route": "cuda",

@@ -60,6 +60,17 @@
 //       gemm_plan); sum_rows_kernel then adds the partials in a fixed order,
 //       so the result is deterministic.
 //
+// The reverse recurrence is also kernel 5, the v1 route's backward
+// (`_bwd_kernel`, eesen_tpu/ops/lstm_pallas.py:94, computing
+// lstm_pallas.py:111-156), as the template instance V1 behind entry
+// lstm_scan_bwd_rec: it reads the stored c_raw f32 (recomputing it from the
+// bf16 gates would differ by their rounding), writes dgifo as dxw in f32,
+// unrounded (the dm product still takes bf16(dgifo)), and keeps no per-row
+// sums (its caller computes dW_m and dph from dxw).  A thread then carries
+// up to EPT_V1 elements; the host plan is ops/lstm_cuda.py bwd_plan(v1=True)
+// (H <= 1664, past which the route runs csrc/lstm_scan_bwd.cu), which keeps
+// all clusters in one wave where it can.
+//
 // Bound.  At B=128, T=768, H=640, D=1280 the work is 4*B*T*(D+H)*4H FLOP
 // over the valid steps, ~1.9 ms at 989 TFLOP/s (bf16).  The recurrence (a)
 // is bound by its T-step serial chain: per step the residuals' loads, one
@@ -82,6 +93,7 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int EPT = 4;  // (row, unit) elements a thread carries: rows*U <= EPT*THREADS
+constexpr int EPT_V1 = 8;  // the same for the v1 instance, which carries no sums
 constexpr int KCH = 4;  // k-steps of W_m fragments loaded at once
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -219,14 +231,20 @@ __device__ __forceinline__ void rec_product(cg::cluster_group& cluster, const fl
   }
 }
 
-template <typename TIn, typename TState>
+// V1: kernel 5's instance (see lstm_scan_bwd_rec below): c_raw read from
+// `craw` instead of recomputed, dgifo written unrounded in float32, no
+// per-row sums (part_rows unused).
+template <typename TIn, typename TState, bool V1>
 __global__ void __launch_bounds__(THREADS)
     lstm_bwd_rec_kernel(const float* __restrict__ mask, const TIn* __restrict__ gates,
-                        const TState* __restrict__ c, const TState* __restrict__ gm,
-                        const void* __restrict__ wsl, const float* __restrict__ ph,
-                        TIn* __restrict__ dgifo, float* __restrict__ part_rows, int T, int B,
-                        int H, int U, int rows, int kres) {
+                        const TState* __restrict__ c, const float* __restrict__ craw,
+                        const TState* __restrict__ gm, const void* __restrict__ wsl,
+                        const float* __restrict__ ph,
+                        typename std::conditional<V1, float, TIn>::type* __restrict__ dgifo,
+                        float* __restrict__ part_rows, int T, int B, int H, int U, int rows,
+                        int kres) {
   constexpr bool BF16 = std::is_same<TIn, __nv_bfloat16>::value;
+  constexpr int ept = V1 ? EPT_V1 : EPT;
   using W = typename std::conditional<BF16, uint32_t, float>::type;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -264,9 +282,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int e = tid; e < rows * SW; e += THREADS) op[e] = 0;
   cluster.sync();  // every CTA is running before any remote write
 
-  float dc[EPT], dmp[EPT], acc[EPT][7];
+  float dc[ept], dmp[ept], acc[ept][7];
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) {
+  for (int i = 0; i < ept; ++i) {
     dc[i] = 0.0f;
     dmp[i] = 0.0f;
 #pragma unroll
@@ -276,7 +294,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = T - 1; t >= 0; --t) {
     const float* rin = recv + (t & 1) * C * slot;
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) {
+    for (int i = 0; i < ept; ++i) {
       const int e = tid + i * THREADS;
       if (e < ne) {
         const int r = e / nu, u = e % nu, hu = u0 + u;
@@ -290,7 +308,7 @@ __global__ void __launch_bounds__(THREADS)
         const float gg = to_f(gp[0]), ig = to_f(gp[H]);
         const float fg = to_f(gp[2 * H]), og = to_f(gp[3 * H]);
         const float c_prev = t > 0 ? to_f(c[(row - B) * H + hu]) : 0.0f;
-        const float c_raw = fg * c_prev + ig * gg;
+        const float c_raw = V1 ? craw[row * H + hu] : fg * c_prev + ig * gg;
         const float mt = mask[row];
         const float tanh_c = tanhf(c_raw);
 
@@ -311,17 +329,23 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           const TIn v = from_f<TIn>(d4[g]);
-          dgifo[row * G + g * H + hu] = v;
+          if constexpr (V1) {
+            dgifo[row * G + g * H + hu] = d4[g];
+          } else {
+            dgifo[row * G + g * H + hu] = v;
+          }
           if constexpr (BF16) {
             reinterpret_cast<__nv_bfloat16*>(op)[2 * r * SW + g * U + u] = v;
           } else {
             op[r * SW + g * U + u] = v;
           }
-          acc[i][g] += d4[g];
+          if constexpr (!V1) acc[i][g] += d4[g];
         }
-        acc[i][4] += di_pre * c_prev;
-        acc[i][5] += df_pre * c_prev;
-        acc[i][6] += do_pre * c_raw;
+        if constexpr (!V1) {
+          acc[i][4] += di_pre * c_prev;
+          acc[i][5] += df_pre * c_prev;
+          acc[i][6] += do_pre * c_raw;
+        }
       }
     }
     if (t == 0) break;  // no step below: nothing more crosses the cluster
@@ -330,13 +354,15 @@ __global__ void __launch_bounds__(THREADS)
     rec_product(cluster, op, ws, wg, recv + ((t - 1) & 1) * C * slot, H, U, rows, nr, kres);
     cluster.sync();     // every partial has landed; the operand is free
   }
+  if constexpr (!V1) {
 #pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int e = tid + i * THREADS;
-    if (e < ne) {
-      float* pr = part_rows + (size_t)(b0 + e / nu) * H7 + u0 + e % nu;
+    for (int i = 0; i < ept; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ne) {
+        float* pr = part_rows + (size_t)(b0 + e / nu) * H7 + u0 + e % nu;
 #pragma unroll
-      for (int k = 0; k < 7; ++k) pr[k * H] = acc[i][k];
+        for (int k = 0; k < 7; ++k) pr[k * H] = acc[i][k];
+      }
     }
   }
 }
@@ -349,20 +375,20 @@ long long rec_smem_bytes(int cluster, int rows, int units, int kres, bool bf16) 
   return 4LL * (2LL * cluster * rows * units + (long long)(rows + kres) * row_words(units, bf16));
 }
 
-template <typename TIn, typename TState>
+template <typename TIn, typename TState, bool V1>
 cudaError_t rec_config(int B, int H, int cluster, int rows, int units, int kres,
                        cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const bool bf16 = std::is_same<TIn, __nv_bfloat16>::value;
   // the shapes the kernel takes: whole mma row tiles (at most two) and
   // k-steps, whole 8-column tiles of resident rows on the bf16 path, every
-  // unit owned, each thread at most EPT elements
+  // unit owned, each thread at most EPT (EPT_V1) elements
   if (cluster < 1 || cluster > 16 || rows < 4 || rows % (bf16 ? 16 : 4) != 0 ||
       (bf16 && (rows > 32 || units % 4 != 0 || kres % 8 != 0 || kres > hpad8(H))) ||
       kres < 0 || (!bf16 && kres > H) || (long long)units * cluster < H ||
-      rows * units > EPT * THREADS)
+      rows * units > (V1 ? EPT_V1 : EPT) * THREADS)
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)rec_smem_bytes(cluster, rows, units, kres, bf16);
-  auto kern = lstm_bwd_rec_kernel<TIn, TState>;
+  auto kern = lstm_bwd_rec_kernel<TIn, TState, V1>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -386,14 +412,28 @@ cudaError_t rec_config(int B, int H, int cluster, int rows, int units, int kres,
 
 // How many clusters of this shape the card holds at once; 0 means one
 // cluster cannot be resident.
-template <typename TIn, typename TState>
+template <typename TIn, typename TState, bool V1>
 cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kres,
                          cudaStream_t st, int* active) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  cudaError_t err =
+      rec_config<TIn, TState, V1>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, lstm_bwd_rec_kernel<TIn, TState>, &cfg);
+  return cudaOccupancyMaxActiveClusters(active, lstm_bwd_rec_kernel<TIn, TState, V1>, &cfg);
+}
+
+// The recurrence's launch configuration, refused with
+// cudaErrorInvalidConfiguration when not even one cluster can be resident.
+template <typename TIn, typename TState, bool V1>
+cudaError_t rec_ready(int B, int H, int cluster, int rows, int units, int kres, cudaStream_t st,
+                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = rec_config<TIn, TState, V1>(B, H, cluster, rows, units, kres, st, cfg, attr);
+  if (err != cudaSuccess) return err;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, lstm_bwd_rec_kernel<TIn, TState, V1>, cfg);
+  if (err != cudaSuccess) return err;
+  return active < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 // out[i] = sum over p < P of in[p*N + i], in order of p
@@ -423,18 +463,16 @@ cudaError_t run(const void* x, const void* mask, const void* gates, const void* 
   const long long TB = (long long)T * B;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  cudaError_t err =
+      rec_ready<TIn, TState, false>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, lstm_bwd_rec_kernel<TIn, TState>, &cfg);
-  if (err != cudaSuccess) return err;
-  if (active < 1) return cudaErrorInvalidConfiguration;
   // (a) the reverse recurrence
-  err = cudaLaunchKernelEx(&cfg, lstm_bwd_rec_kernel<TIn, TState>,
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_rec_kernel<TIn, TState, false>,
                            static_cast<const float*>(mask), static_cast<const TIn*>(gates),
-                           static_cast<const TState*>(c), static_cast<const TState*>(gm), wsl,
-                           static_cast<const float*>(ph), static_cast<TIn*>(dgifo),
-                           static_cast<float*>(part_rows), T, B, H, units, rows, kres);
+                           static_cast<const TState*>(c), static_cast<const float*>(nullptr),
+                           static_cast<const TState*>(gm), wsl, static_cast<const float*>(ph),
+                           static_cast<TIn*>(dgifo), static_cast<float*>(part_rows), T, B, H,
+                           units, rows, kres);
   if (err != cudaSuccess) return err;
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = sum_rows(part_rows, dbph, B, 7LL * H, st)) != cudaSuccess) return err;
@@ -503,8 +541,9 @@ extern "C" int lstm_bwd_max_clusters(int B, int H, int cluster, int rows, int un
                                      int in_bf16) {
   int active = 0;
   const cudaError_t err =
-      in_bf16 ? max_clusters<__nv_bfloat16, float>(B, H, cluster, rows, units, kres, 0, &active)
-              : max_clusters<float, float>(B, H, cluster, rows, units, kres, 0, &active);
+      in_bf16
+          ? max_clusters<__nv_bfloat16, float, false>(B, H, cluster, rows, units, kres, 0, &active)
+          : max_clusters<float, float, false>(B, H, cluster, rows, units, kres, 0, &active);
   return err == cudaSuccess ? active : -(int)err;
 }
 
@@ -540,4 +579,43 @@ extern "C" int lstm_bwd(const void* x, const void* mask, const void* gates, cons
               : run<float, float>(x, mask, gates, c, m, gm, wx, wsl, ph, dx, dwx, dwm, dbph, dgifo, part_rows, part_wx, part_wm, x_pad, dg_pad, m_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, zx, zm, st);
   }
   return (int)err;
+}
+
+// cudaOccupancyMaxActiveClusters for kernel 5's instance of the recurrence
+// at this shape, or minus the CUDA error.
+extern "C" int lstm_scan_bwd_max_clusters(int B, int H, int cluster, int rows, int units,
+                                          int kres) {
+  int active = 0;
+  const cudaError_t err =
+      max_clusters<__nv_bfloat16, float, true>(B, H, cluster, rows, units, kres, 0, &active);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
+// Kernel 5 (the v1 route's backward; where this plan does not take H the
+// route runs csrc/lstm_scan_bwd.cu): the reverse recurrence alone over kernel 4's
+// residuals, on clusters shaped by ops/lstm_cuda.py bwd_plan(v1=True).
+// mask [T,B] f32, gates [T,B,4H] bf16, c_raw, the c carry and gm [T,B,H]
+// f32, wsl the bf16 slice layout of W_m (bwd_weight_slices), ph [3,H] f32;
+// writes dxw [T,B,4H] f32, the gate gradients unrounded (dm's product takes
+// them rounded to bf16).  Returns the first CUDA error
+// (cudaErrorInvalidConfiguration when not even one cluster can be resident).
+extern "C" int lstm_scan_bwd_rec(const void* mask, const void* gates, const void* craw,
+                                 const void* c, const void* gm, const void* wsl, const void* ph,
+                                 void* dxw, int T, int B, int H, int cluster, int rows, int units,
+                                 int kres, void* stream) {
+  using BF = __nv_bfloat16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      rec_ready<BF, float, true>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_rec_kernel<BF, float, true>,
+                           static_cast<const float*>(mask), static_cast<const BF*>(gates),
+                           static_cast<const float*>(c), static_cast<const float*>(craw),
+                           static_cast<const float*>(gm), wsl, static_cast<const float*>(ph),
+                           static_cast<float*>(dxw), static_cast<float*>(nullptr), T, B, H,
+                           units, rows, kres);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -38,6 +38,14 @@
 //       distributed shared memory (double-buffered), and one cluster barrier
 //       (barrier.cluster.arrive.release / wait.acquire) ends the step.
 //
+// The recurrence is also kernel 4, the v1 route's forward (`_fwd_kernel`,
+// eesen_tpu/ops/lstm_pallas.py:50, computing lstm_pallas.py:70-91): entry
+// lstm_scan_fwd_rec launches it alone, bf16 operand and f32 state, over the
+// caller's xw, and writes c_raw (the cell before the mask freeze, f32)
+// beside the c carry through `craw_out`, null for kernel 1.  The host plan
+// is the same (ops/lstm_cuda.py fwd_plan; H <= 2624, past which the route
+// runs csrc/lstm_scan_fwd.cu).
+//
 // Bound.  Per direction-layer the work is 2*B*T*(D+H)*4H FLOP: at B=8,
 // T=512, H=320 that is 4.6 GFLOP for D=120 and 10.1 GFLOP for D=640, i.e.
 // ~5 us and ~10 us at the H100's 989 TFLOP/s (bf16).  The real floor is the
@@ -163,8 +171,8 @@ __global__ void __launch_bounds__(THREADS)
     lstm_rec_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
                     const TIn* __restrict__ w, const float* __restrict__ ph,
                     TState* __restrict__ m_out, TState* __restrict__ c_out,
-                    TIn* __restrict__ gates_out, int T, int B, int H, int U, int rows,
-                    int kres) {
+                    float* __restrict__ craw_out, TIn* __restrict__ gates_out, int T, int B,
+                    int H, int U, int rows, int kres) {
   constexpr bool BF16 = std::is_same<TIn, __nv_bfloat16>::value;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -234,6 +242,7 @@ __global__ void __launch_bounds__(THREADS)
       ms[r * U + u] = m_new;
       m_out[row * H + hu] = from_f<TState>(m_new);
       if (c_out != nullptr) c_out[row * H + hu] = from_f<TState>(c_new);
+      if (craw_out != nullptr) craw_out[row * H + hu] = c_raw;
       if (gates_out != nullptr) {
         TIn* gp = gates_out + row * G + hu;
         gp[0] = from_f<TIn>(gg);
@@ -312,6 +321,19 @@ cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kre
   return cudaOccupancyMaxActiveClusters(active, lstm_rec_kernel<TIn, TState>, &cfg);
 }
 
+// The recurrence's launch configuration, refused with
+// cudaErrorInvalidConfiguration when not even one cluster can be resident.
+template <typename TIn, typename TState>
+cudaError_t rec_ready(int B, int H, int cluster, int rows, int units, int kres, cudaStream_t st,
+                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, cfg, attr);
+  if (err != cudaSuccess) return err;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, lstm_rec_kernel<TIn, TState>, cfg);
+  if (err != cudaSuccess) return err;
+  return active < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
 template <typename TIn, typename TState>
 cudaError_t run(const void* x, const void* mask, const void* wx, const void* bias,
                 const void* w, const void* ph, void* m_out, void* c_out, void* gates_out,
@@ -319,12 +341,8 @@ cudaError_t run(const void* x, const void* mask, const void* wx, const void* bia
                 int cluster, int rows, int units, int kres, cudaStream_t st) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  cudaError_t err = rec_ready<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, lstm_rec_kernel<TIn, TState>, &cfg);
-  if (err != cudaSuccess) return err;
-  if (active < 1) return cudaErrorInvalidConfiguration;
   // (1) xw = x.W_x + b: A(tb, d) = x[tb*D + d], B(d, g) = W_x[d*4H + g]
   const int G = 4 * H, TB = T * B;
   if constexpr (std::is_same<TIn, __nv_bfloat16>::value) {
@@ -350,8 +368,8 @@ cudaError_t run(const void* x, const void* mask, const void* wx, const void* bia
   err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<TIn, TState>, static_cast<const float*>(xw),
                            static_cast<const float*>(mask), static_cast<const TIn*>(w),
                            static_cast<const float*>(ph), static_cast<TState*>(m_out),
-                           static_cast<TState*>(c_out), static_cast<TIn*>(gates_out), T, B, H,
-                           units, rows, kres);
+                           static_cast<TState*>(c_out), static_cast<float*>(nullptr),
+                           static_cast<TIn*>(gates_out), T, B, H, units, rows, kres);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -401,4 +419,31 @@ extern "C" int lstm_fwd(const void* x, const void* mask, const void* wx, const v
               : run<float, float>(x, mask, wx, bias, w, ph, m_out, c_out, gates_out, xw, x_pad, wx_pad, T, B, D, H, cluster, rows, units, kres, st);
   }
   return (int)err;
+}
+
+// Kernel 4 (the v1 route's forward; where this plan does not take H the
+// route runs csrc/lstm_scan_fwd.cu): the recurrence alone, bf16 operand and W_m^T
+// [4H,H] bf16, f32 state, over the caller's xw [T,B,4H] f32 (projection +
+// bias); writes the m and c carries and c_raw (the cell before the mask
+// freeze) [T,B,H] f32 and the gates [T,B,4H] bf16 (g, i, f, o).  Cluster
+// shape as lstm_fwd's (ops/lstm_cuda.py fwd_plan).  Returns the first CUDA
+// error (cudaErrorInvalidConfiguration when not even one cluster can be
+// resident).
+extern "C" int lstm_scan_fwd_rec(const void* xw, const void* mask, const void* wmT,
+                                 const void* ph, void* m_out, void* c_out, void* craw_out,
+                                 void* gates_out, int T, int B, int H, int cluster, int rows,
+                                 int units, int kres, void* stream) {
+  using BF = __nv_bfloat16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rec_ready<BF, float>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<BF, float>, static_cast<const float*>(xw),
+                           static_cast<const float*>(mask), static_cast<const BF*>(wmT),
+                           static_cast<const float*>(ph), static_cast<float*>(m_out),
+                           static_cast<float*>(c_out), static_cast<float*>(craw_out),
+                           static_cast<BF*>(gates_out), T, B, H, units, rows, kres);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

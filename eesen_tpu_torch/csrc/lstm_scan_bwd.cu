@@ -15,7 +15,11 @@
 // [4H,H] bf16 made contiguous by the caller (reads coalesced across units),
 // ph [3,H] f32.  Output: dxw [T,B,4H] f32.
 //
-// Design.  One block per RB batch rows and a loop over t from T-1 down to 0.
+// Design.  This is kernel 5's design for cells wider than its cluster
+// design takes (csrc/lstm_bwd.cu's lstm_bwd_rec_kernel, V1 instance,
+// H <= 1664; the host chooses, ops/lstm_v1_cuda.py bwd_launch): it takes H
+// up to 5811, where its shared memory ends.  One block per RB batch rows
+// and a loop over t from T-1 down to 0.
 // Thread j owns hidden units j, j + threads, ... in both phases of a step:
 // (a) the elementwise gradients of its units, which write dxw and the bf16
 // dgifo row into shared memory; a barrier; (b) its units' share of the next

@@ -11,9 +11,10 @@
 // freeze) [T,B,H] f32, and the post-activation gates [T,B,4H] bf16 (g, i, f,
 // o), the residuals of the backward kernel (csrc/lstm_scan_bwd.cu).
 //
-// Design.  This is the route for shapes the fused kernel (csrc/lstm_fwd.cu)
-// cannot take, above all H > 1024, where one thread per hidden unit no
-// longer fits a block.  One block per RB batch rows and a loop over t inside
+// Design.  This is kernel 4's design for cells wider than its cluster
+// design takes (csrc/lstm_fwd.cu's lstm_rec_kernel, H <= 2624; the host
+// chooses, ops/lstm_v1_cuda.py fwd_launch): it takes H up to 14528, where
+// its shared memory ends.  One block per RB batch rows and a loop over t inside
 // the block (the TPU's sequential grid).  Thread j owns hidden units j,
 // j + threads, ... (several when H > 1024): for each it sums the H rows of
 // W_m for its four gate columns (reads coalesced across units), then does

@@ -154,6 +154,10 @@ def load() -> ctypes.CDLL:
             getattr(lib, name).restype = _I
             getattr(lib, f"{name}_smem_bytes").argtypes = [_I] * 2
             getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_longlong
+            getattr(lib, f"{name}_rec").argtypes = [_P] * 8 + [_I] * 7 + [_P]
+            getattr(lib, f"{name}_rec").restype = _I
+        lib.lstm_scan_bwd_max_clusters.argtypes = [_I] * 6
+        lib.lstm_scan_bwd_max_clusters.restype = _I
         lib.ctc_alpha.argtypes = [_P] * 4 + [_I] * 3 + [_P]
         lib.ctc_alpha.restype = _I
         lib.ctc_beta.argtypes = [_P] * 5 + [_I] * 3 + [_P]

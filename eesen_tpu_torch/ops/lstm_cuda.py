@@ -36,7 +36,8 @@ Which route a direction takes on the card: `fused_launch(B, D, H)` gives
 the launch parameters of kernels 1 and 3, or None where they do not take
 the shape (H above MAX_H = 1024, or more shared memory than a block
 has); then models/bilstm.py sends the direction to the v1 route
-(ops/lstm_v1_cuda.py, kernels 4 and 5, which take any H).  This is the
+(ops/lstm_v1_cuda.py, kernels 4 and 5, which take H up to 14528 forward
+and 5811 backward).  This is the
 counterpart of `fused_block_ts` (lstm_pallas.py:761-777), which asks
 the same question of the TPU's VMEM; speed plays no part in the choice.
 A direct call of these wrappers on a shape `fused_launch` refuses raises.
@@ -76,6 +77,7 @@ BWD_WAVE_CTAS = 112           # CTAs of clusters the H100 holds at once
                               # 15 of 8 at these kernels' shared memory)
 BWD_THREADS = 512             # kernel 3: threads a CTA, and (row, unit)
 BWD_EPT = 4                   # elements each carries in registers
+BWD_EPT_V1 = 8                # the same for kernel 5's instance (no sums)
 GEMM_TILE = (128, 128, 64)    # the product kernel's output tile and k step
 GEMM_STAGES = 4               # its ring of shared-memory stages
 GEMM_SMEM_BYTES = GEMM_STAGES * 2 * 128 * 64 * 2 + 1024 + 2 * GEMM_STAGES * 8
@@ -225,7 +227,15 @@ class BwdPlan(NamedTuple):
     kres: int          # rows u' of the CTA's W_m slice kept resident
 
 
-def bwd_plan(b: int, h: int, bf16: bool = True) -> Optional[BwdPlan]:
+def one_wave(b: int, cluster: int, rows: int) -> bool:
+    """Whether ceil(B/rows) clusters of `cluster` CTAs fit in one wave of
+    BWD_WAVE_CTAS CTAs: a cluster of a second wave runs its whole T-step
+    chain after the first wave's."""
+    return -(-b // rows) * cluster <= BWD_WAVE_CTAS
+
+
+def bwd_plan(b: int, h: int, bf16: bool = True,
+             v1: bool = False) -> Optional[BwdPlan]:
     """Cluster shape of kernel 3's recurrence, chosen as `fwd_plan`
     chooses kernel 1's: the smaller cluster whose CTAs hold their whole
     W_m slice beside the receive slots, else 16 CTAs with as many rows u'
@@ -234,20 +244,29 @@ def bwd_plan(b: int, h: int, bf16: bool = True) -> Optional[BwdPlan]:
     of BWD_WAVE_CTAS CTAs (a step's time grows with the rows a CTA
     carries), else 32; halved while the receive slots do not fit or a
     thread would carry more than BWD_EPT elements.  None when not even
-    that fits."""
+    that fits.
+
+    v1: the plan of kernel 5's instance of the same recurrence, which
+    carries no per-row sums, so a thread takes up to BWD_EPT_V1 elements;
+    and 16 CTAs replace 8 only where their clusters fit in one wave or
+    the 8-CTA clusters do not either (at B=128, H=1152: 8 clusters of 8
+    CTAs, not 8 of 16, of which the card holds 7)."""
     full = -(-h // 8) * 8 if bf16 else h
     step, min_rows = (8, 16) if bf16 else (1, 4)
+    most = BWD_THREADS * (BWD_EPT_V1 if v1 else BWD_EPT)
     plan = None
     for cluster in CLUSTERS:
         units = bwd_units(h, cluster, bf16)
-        one_wave = -(-b // ROWS[0]) * cluster <= BWD_WAVE_CTAS
-        rows = ROWS[0] if one_wave else ROWS[1]
+        rows = ROWS[0] if one_wave(b, cluster, ROWS[0]) else ROWS[1]
         while rows > min_rows and (
-                rows * units > BWD_THREADS * BWD_EPT
+                rows * units > most
                 or bwd_smem_bytes(cluster, rows, units, 0, bf16) > SMEM_LIMIT):
             rows //= 2
         free = SMEM_LIMIT - bwd_smem_bytes(cluster, rows, units, 0, bf16)
-        if free < 0 or rows * units > BWD_THREADS * BWD_EPT:
+        if free < 0 or rows * units > most:
+            continue
+        if v1 and plan is not None and one_wave(b, plan.cluster, plan.rows) \
+                and not one_wave(b, cluster, rows):
             continue
         row_bytes = 4 * bwd_row_words(units, bf16)
         plan = BwdPlan(cluster, rows, units,

@@ -1,8 +1,7 @@
 """The v1 LSTM route: the recurrence alone over a precomputed input
-projection, as the CUDA kernels `csrc/lstm_scan_fwd.cu` (forward) and
-`csrc/lstm_scan_bwd.cu` (backward), their plain PyTorch versions, the
-autograd Function `LstmScan` over the pair, and the two entries that run
-a direction through it.
+projection, as CUDA kernels 4 (forward) and 5 (backward), their plain
+PyTorch versions, the autograd Function `LstmScan` over the pair, and the
+two entries that run a direction through it.
 
 Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel`
 (eesen_tpu/ops/lstm_pallas.py:50 and :94) behind `lstm_scan`
@@ -25,15 +24,32 @@ outside its kernel.
 `lstm_scan_fwd` and `lstm_scan_bwd` are the wrappers: on a CUDA tensor
 each launches its kernel (or raises), on a CPU tensor each runs its plain
 version (`lstm_scan_fwd_ref`, `lstm_scan_bwd_ref`).
+
+Each kernel has two designs, chosen per call by host arithmetic on the
+shape (`fwd_launch`, `bwd_launch`), never by a switch or a retry:
+- "cluster", wherever the cluster plans take H: kernel 4 is kernel 1's
+  recurrence (`lstm_rec_kernel`, csrc/lstm_fwd.cu, entry
+  `lstm_scan_fwd_rec`) over the caller's xw with c_raw as one more
+  output, on `lstm_cuda.fwd_plan` (H <= 2624); kernel 5 is kernel 3's
+  reverse recurrence (`lstm_bwd_rec_kernel`, csrc/lstm_bwd.cu, entry
+  `lstm_scan_bwd_rec`) in its v1 instance, which reads the stored c_raw,
+  writes dxw unrounded in float32 and keeps no per-row sums, on
+  `lstm_cuda.bwd_plan(v1=True)` (H <= 1664).  W_m^T and the slice layout
+  are made per call.
+- "thread_per_unit" for wider cells: `csrc/lstm_scan_fwd.cu` (H <= 14528)
+  and `csrc/lstm_scan_bwd.cu` (H <= 5811), one block per ROWS_PER_BLOCK
+  batch rows, a thread per hidden unit (several past 1024), W_m streamed
+  from L2 every step.
+Either way a call counts once in `launches` / `bwd_launches`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
-from eesen_tpu_torch.ops import build
+from eesen_tpu_torch.ops import build, lstm_cuda
 from eesen_tpu_torch.ops.lstm_cuda import MAX_THREADS, SMEM_LIMIT, _check
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
@@ -41,7 +57,8 @@ from eesen_tpu_torch.ops.lstm_cuda import MAX_THREADS, SMEM_LIMIT, _check
 launches = 0
 bwd_launches = 0
 
-ROWS_PER_BLOCK = 2            # batch rows per thread block (1 or 2)
+ROWS_PER_BLOCK = 2            # thread-per-unit kernels: batch rows per
+                              # thread block (1 or 2)
 
 _BF, _F32 = torch.bfloat16, torch.float32
 
@@ -126,9 +143,9 @@ def lstm_scan_bwd_ref(
 
 
 def _launch_shape(what: str, h: int, smem_bytes) -> Tuple[int, int]:
-    """(rows per block, threads) for a kernel of the v1 route: each
-    thread owns ceil(H / 1024) hidden units; two rows a block unless the
-    shared memory needs one."""
+    """(rows per block, threads) for a thread-per-unit kernel of the v1
+    route: each thread owns ceil(H / 1024) hidden units; two rows a block
+    unless the shared memory needs one.  Raises past its shared memory."""
     per = -(-h // MAX_THREADS)
     threads = min(MAX_THREADS, 32 * -(-h // (32 * per)))
     rows = ROWS_PER_BLOCK
@@ -141,13 +158,44 @@ def _launch_shape(what: str, h: int, smem_bytes) -> Tuple[int, int]:
 
 
 def fwd_smem_bytes(h: int, rows: int) -> int:
-    """Shared memory of kernel 4 (csrc/lstm_scan_fwd.cu)."""
+    """Shared memory of kernel 4's thread-per-unit design
+    (csrc/lstm_scan_fwd.cu)."""
     return 16 * rows * h
 
 
 def bwd_smem_bytes(h: int, rows: int) -> int:
-    """Shared memory of kernel 5 (csrc/lstm_scan_bwd.cu)."""
+    """Shared memory of kernel 5's thread-per-unit design
+    (csrc/lstm_scan_bwd.cu)."""
     return 40 * rows * h
+
+
+class ScanLaunch(NamedTuple):
+    design: str        # "cluster" or "thread_per_unit"
+    plan: Union[lstm_cuda.FwdPlan, lstm_cuda.BwdPlan, Tuple[int, int]]
+    # the cluster plan, or (rows per block, threads)
+
+
+def fwd_launch(b: int, h: int) -> ScanLaunch:
+    """Kernel 4's design at batch b, cell width h: the cluster recurrence
+    on `lstm_cuda.fwd_plan(b, h)` where that takes H (H <= 2624), else
+    the thread-per-unit kernel (H <= 14528; raises past it)."""
+    plan = lstm_cuda.fwd_plan(b, h)
+    if plan is not None:
+        return ScanLaunch("cluster", plan)
+    return ScanLaunch("thread_per_unit",
+                      _launch_shape("lstm_scan_fwd", h, fwd_smem_bytes))
+
+
+def bwd_launch(b: int, h: int) -> ScanLaunch:
+    """Kernel 5's design: the v1 instance of kernel 3's cluster
+    recurrence on `lstm_cuda.bwd_plan(b, h, v1=True)` where that takes H
+    (H <= 1664), else the thread-per-unit kernel (H <= 5811; raises past
+    it)."""
+    plan = lstm_cuda.bwd_plan(b, h, v1=True)
+    if plan is not None:
+        return ScanLaunch("cluster", plan)
+    return ScanLaunch("thread_per_unit",
+                      _launch_shape("lstm_scan_bwd", h, bwd_smem_bytes))
 
 
 def lstm_scan_fwd(
@@ -156,7 +204,9 @@ def lstm_scan_fwd(
 ) -> Tuple[torch.Tensor, ...]:
     """Kernel 4: xw [T, B, 4H] f32, mask [T, B] f32, w_m [H, 4H] bf16,
     ph [3, H] f32 -> (m carry, c carry, c_raw) [T, B, H] f32 and gates
-    [T, B, 4H] bf16."""
+    [T, B, 4H] bf16.  On the card the design is `fwd_launch(B, H)`'s:
+    the cluster recurrence up to H = 2624, the thread-per-unit kernel
+    above (to 14528); wider raises."""
     global launches
     if xw.device.type == "cpu":
         return lstm_scan_fwd_ref(xw, mask, w_m, ph)
@@ -170,19 +220,24 @@ def lstm_scan_fwd(
         "w_m": (w_m, (h, 4 * h), _BF),
         "ph": (ph, (3, h), _F32),
     })
-    rows, threads = _launch_shape("lstm_scan_fwd", h, fwd_smem_bytes)
+    launch = fwd_launch(b, h)
     m, c, c_raw = (torch.empty((t_max, b, h), dtype=_F32, device=xw.device)
                    for _ in range(3))
     gates = torch.empty((t_max, b, 4 * h), dtype=_BF, device=xw.device)
     if t_max > 0 and b > 0:
         lib = build.load()
-        err = lib.lstm_scan_fwd(
-            xw.data_ptr(), mask.data_ptr(), w_m.data_ptr(), ph.data_ptr(),
+        if launch.design == "cluster":
+            w = w_m.t().contiguous()         # W_m^T [4H, H]: mma operand rows
+            entry = "lstm_scan_fwd_rec"
+        else:
+            w, entry = w_m, "lstm_scan_fwd"
+        err = getattr(lib, entry)(
+            xw.data_ptr(), mask.data_ptr(), w.data_ptr(), ph.data_ptr(),
             m.data_ptr(), c.data_ptr(), c_raw.data_ptr(), gates.data_ptr(),
-            t_max, b, h, rows, threads,
+            t_max, b, h, *launch.plan,
             torch.cuda.current_stream(xw.device).cuda_stream,
         )
-        build.check(err, "lstm_scan_fwd")
+        build.check(err, entry)
         launches += 1
     return m, c, c_raw, gates
 
@@ -193,7 +248,9 @@ def lstm_scan_bwd(
 ) -> torch.Tensor:
     """Kernel 5: the residuals of kernel 4 (gates bf16, c_raw and the c
     carry f32), gm [T, B, H] f32 (the cotangent of the m carry), w_m
-    [H, 4H] bf16, ph [3, H] f32 -> dxw [T, B, 4H] f32."""
+    [H, 4H] bf16, ph [3, H] f32 -> dxw [T, B, 4H] f32.  On the card the
+    design is `bwd_launch(B, H)`'s: the cluster recurrence up to H = 1664,
+    the thread-per-unit kernel above (to 5811); wider raises."""
     global bwd_launches
     if gates.device.type == "cpu":
         return lstm_scan_bwd_ref(mask, gates, c_raw, c, gm, w_m, ph)
@@ -210,18 +267,23 @@ def lstm_scan_bwd(
         "w_m": (w_m, (h, 4 * h), _BF),
         "ph": (ph, (3, h), _F32),
     })
-    rows, threads = _launch_shape("lstm_scan_bwd", h, bwd_smem_bytes)
+    launch = bwd_launch(b, h)
     dxw = torch.empty((t_max, b, 4 * h), dtype=_F32, device=gates.device)
     if t_max > 0 and b > 0:
         lib = build.load()
-        wm_t = w_m.t().contiguous()          # [4H, H]: coalesced across h
-        err = lib.lstm_scan_bwd(
+        if launch.design == "cluster":
+            w = lstm_cuda.bwd_weight_slices(w_m, launch.plan, True)
+            entry = "lstm_scan_bwd_rec"
+        else:
+            w = w_m.t().contiguous()         # [4H, H]: coalesced across h
+            entry = "lstm_scan_bwd"
+        err = getattr(lib, entry)(
             mask.data_ptr(), gates.data_ptr(), c_raw.data_ptr(),
-            c.data_ptr(), gm.data_ptr(), wm_t.data_ptr(), ph.data_ptr(),
-            dxw.data_ptr(), t_max, b, h, rows, threads,
+            c.data_ptr(), gm.data_ptr(), w.data_ptr(), ph.data_ptr(),
+            dxw.data_ptr(), t_max, b, h, *launch.plan,
             torch.cuda.current_stream(gates.device).cuda_stream,
         )
-        build.check(err, "lstm_scan_bwd")
+        build.check(err, entry)
         bwd_launches += 1
     return dxw
 

@@ -311,3 +311,155 @@ def test_ctc_plan_keeps_every_s_it_took():
         pairs.add((plan.spt, plan.depth))
     assert pairs == {(1, 8), (2, 8), (4, 8), (8, 8), (8, 4), (16, 4),
                      (16, 2), (16, 1), (32, 1)}
+
+
+# Kernels 4 and 5 (ops/lstm_v1_cuda.fwd_launch / bwd_launch): the cluster
+# recurrence where its plan takes H, else the thread-per-unit kernel, whose
+# plan is (rows per block, threads): ceil(H/1024) units a thread, threads
+# 32 * ceil(H / (32 * units a thread)).
+@pytest.mark.parametrize("b,h,fwd,bwd", [
+    # the route's width at serving: one 16-CTA cluster each; kernel 4 keeps
+    # 192 of 1152 input rows resident, kernel 5 120 of 1152 rows u'
+    (8, 1152, ("cluster", (16, 16, 72, 192), 1, True),
+     ("cluster", (16, 16, 72, 120), 1, True)),
+    # B=128: kernel 4 in 4 clusters of 16 CTAs, 32 rows each, nothing
+    # resident (the 32-row operand fills the shared memory); kernel 5 in 8
+    # clusters of 8 CTAs (U=144, 16 rows: 2304 elements, 5 a thread, 56 rows
+    # u' resident): 64 CTAs in one wave, where bwd_plan's 16-CTA plan
+    # (16, 16, 72, 120) needs 8 clusters of 16 and the card holds 7
+    (128, 1152, ("cluster", (16, 32, 72, 0), 4, True),
+     ("cluster", (8, 16, 144, 56), 8, True)),
+    # either side of kernel 5's limit: at H=1664 the 16-row receive slots
+    # and operand take 226560 of 232448 bytes; at 1665 (U=108) 235264
+    (1, 1664, ("cluster", (16, 16, 104, 64), 1, True),
+     ("cluster", (16, 16, 104, 0), 1, True)),
+    (128, 1664, ("cluster", (16, 16, 104, 64), 8, False),
+     ("cluster", (16, 16, 104, 0), 8, False)),
+    (8, 1665, ("cluster", (16, 16, 106, 64), 1, True),
+     ("thread_per_unit", (2, 864), None, None)),
+    # either side of kernel 4's limit: at H=2624 (U=164) the 16-row
+    # pre-activations, carries and operand take 230912 bytes; at 2625
+    # (U=166, operand rows padded to 2688) 235776
+    (8, 2624, ("cluster", (16, 16, 164, 0), 1, True),
+     ("thread_per_unit", (2, 896), None, None)),
+    (128, 2625, ("thread_per_unit", (2, 896), None, None),
+     ("thread_per_unit", (2, 896), None, None)),
+    # a narrow cell: the cluster plans of kernels 1 and 3 at B=20
+    (20, 40, ("cluster", (8, 32, 6, 64), 1, True),
+     ("cluster", (8, 16, 8, 40), 2, True)),
+])
+def test_v1_launch(b, h, fwd, bwd):
+    """(design, plan, clusters, whether they fit in one wave of
+    BWD_WAVE_CTAS CTAs) of kernels 4 and 5."""
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    for got, (design, plan, clusters, wave) in (
+            (lstm_v1_cuda.fwd_launch(b, h), fwd),
+            (lstm_v1_cuda.bwd_launch(b, h), bwd)):
+        assert (got.design, tuple(got.plan)) == (design, plan)
+        if design == "cluster":
+            assert -(-b // got.plan.rows) == clusters
+            assert lstm_cuda.one_wave(b, got.plan.cluster,
+                                      got.plan.rows) == wave
+
+
+def _old_fwd_plan(b, h, bf16):
+    """fwd_plan before the v1 route used it (kept here verbatim, with its
+    constants, to pin kernel 1's plans)."""
+    s = 2 if bf16 else 4
+    kp = -(-h // 64) * 64 if bf16 else h
+    step, min_rows = (64, 16) if bf16 else (1, 4)
+    plan = None
+    for cluster in (8, 16):
+        u = -(-h // cluster)
+        units = u + (u & 1)
+        rows = 16 if b <= 16 else 32
+        smem = lambda r, k: (r * 4 * units * 4 + 2 * r * units * 4
+                             + 2 * r * kp * s + k * 4 * units * s)
+        while rows > min_rows and smem(rows, 0) > LIMIT:
+            rows //= 2
+        free = LIMIT - smem(rows, 0)
+        if free < 0:
+            continue
+        kres = min(kp, free // (4 * units * s) // step * step)
+        plan = (cluster, rows, units, kres)
+        if kres == kp:
+            break
+    return plan
+
+
+def _old_bwd_plan(b, h, bf16):
+    """bwd_plan before its v1 variant (kept here verbatim, with its
+    constants, to pin kernel 3's plans)."""
+    full = -(-h // 8) * 8 if bf16 else h
+    step, min_rows = (8, 16) if bf16 else (1, 4)
+    plan = None
+    for cluster in (8, 16):
+        u = -(-h // cluster)
+        units = -(-u // 4) * 4 if bf16 else u
+        sw = 2 * units + 4 if bf16 else 4 * units
+        smem = lambda r, k: 4 * (2 * cluster * r * units + (r + k) * sw)
+        rows = 16 if -(-b // 16) * cluster <= 112 else 32
+        while rows > min_rows and (rows * units > 2048
+                                   or smem(rows, 0) > LIMIT):
+            rows //= 2
+        free = LIMIT - smem(rows, 0)
+        if free < 0 or rows * units > 2048:
+            continue
+        plan = (cluster, rows, units, min(full, free // (4 * sw) // step
+                                          * step))
+        if plan[3] == full:
+            break
+    return plan
+
+
+@pytest.mark.parametrize("h", [320, 640, 1024])
+def test_kernel_1_and_3_plans_are_unchanged(h):
+    """The plans of kernels 1 and 3 at the recipes' widths (and at 1024,
+    the fused route's widest), at every B up to 300 and both compute
+    dtypes, are the ones they had before kernels 4 and 5 shared their
+    recurrences."""
+    for b in range(1, 301):
+        for bf16 in (True, False):
+            got = lstm_cuda.fused_launch(b, 64, h, bf16)
+            assert tuple(got.fwd) == _old_fwd_plan(b, h, bf16), (b, bf16)
+            assert tuple(got.bwd) == _old_bwd_plan(b, h, bf16), (b, bf16)
+
+
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_v1_launch_keeps_every_h_it_took(b):
+    """Every H the thread-per-unit kernels took (at one row a block, 16*H
+    bytes of shared memory forward, 40*H backward: H <= 14528 and <= 5811)
+    is still taken, by the cluster design up to its plan's limit (2624 and
+    1664 at any B) and by the thread-per-unit one above, with a plan that
+    fits and owns every unit; one past raises, as before."""
+    from eesen_tpu_torch.ops import lstm_v1_cuda
+
+    for which, per_h, limit in (("fwd", 16, 2624), ("bwd", 40, 1664)):
+        launch = getattr(lstm_v1_cuda, f"{which}_launch")
+        top = LIMIT // per_h
+        for h in range(1, top + 1):
+            got = launch(b, h)
+            assert got.design == ("cluster" if h <= limit
+                                  else "thread_per_unit"), (which, h)
+            if got.design == "thread_per_unit":
+                rows, threads = got.plan
+                assert per_h * rows * h <= LIMIT
+                assert threads % 32 == 0 and threads <= 1024
+                assert threads * -(-h // 1024) >= h
+            elif which == "fwd":
+                p = got.plan
+                assert p.units * p.cluster >= h and p.units % 2 == 0
+                assert p.rows % 16 == 0 and p.kres % 64 == 0
+                assert p.kres <= lstm_cuda.fwd_kpad(h, True)
+                assert lstm_cuda.fwd_smem_bytes(h, p.rows, p.units, p.kres,
+                                                True) <= LIMIT
+            else:
+                q = got.plan
+                assert q.units * q.cluster >= h and q.units % 4 == 0
+                assert q.rows % 16 == 0 and q.kres % 8 == 0
+                assert q.rows * q.units <= 512 * lstm_cuda.BWD_EPT_V1
+                assert q.kres <= -(-h // 8) * 8
+                assert lstm_cuda.bwd_smem_bytes(*q, True) <= LIMIT
+        with pytest.raises(ValueError):
+            launch(b, top + 1)

@@ -18,11 +18,12 @@ PH = ("phole_i_c", "phole_f_c", "phole_o_c")
 
 
 def scan_inputs(seed, t=9, b=3, h=5):
-    """xw, mask (a full row, a short row, a row of length 0), W_m, ph and
-    a cotangent of the m carry, as numpy float32."""
+    """xw, mask (a full row, a short row, a row of length 0, then for b > 3
+    a row of 3 steps and one of t-1), W_m, ph and a cotangent of the m
+    carry, as numpy float32."""
     rng = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: (sc * rng.standard_normal(s)).astype(np.float32)
-    lens = np.array([t, t - 4, 0][:b])
+    lens = np.array([t, t - 4, 0, 3, t - 1][:b])
     mask = (np.arange(t)[:, None] < lens[None, :]).astype(np.float32)
     return dict(xw=f(t, b, 4 * h), mask=mask, w_m=f(h, 4 * h, sc=0.3),
                 ph=f(3, h, sc=0.3), gm=f(t, b, h))
@@ -226,3 +227,171 @@ def test_fused_launch_refuses_exactly_past_the_limits(b, d, h):
             assert p.cluster in (8, 16) and p.units * p.cluster >= h
             assert lstm_cuda.fwd_smem_bytes(
                 h, p.rows, p.units, p.kres, bf16) <= 232448
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+def cluster_fwd_model(xw, mask, w_m, ph, cluster, rows):
+    """Kernel 4's cluster design (csrc/lstm_fwd.cu lstm_rec_kernel with a
+    c_raw output) in float32 torch, with its partition: a cluster of
+    `cluster` CTAs per `rows` batch rows, CTA q owning hidden units
+    [q*U, (q+1)*U) (U = fwd_units) with their four gate columns, each step
+    its pre-activations bf16(m_{t-1}) . W_m[:, its 4U columns] in float32,
+    then its units' gates, freeze and outputs; bf16(m_t) goes into every
+    CTA's next operand.  Returns (m, c, c_raw, gates) as the kernel."""
+    t_max, b, g4 = xw.shape
+    h = g4 // 4
+    u = lstm_cuda.fwd_units(h, cluster)
+    wm = w_m.to(_BF).to(_F32)
+    m_out, c_out, craw_out = (torch.zeros((t_max, b, h)) for _ in range(3))
+    gates = torch.zeros((t_max, b, 4 * h), dtype=_BF)
+    for b0 in range(0, b, rows):
+        rs = slice(b0, min(b, b0 + rows))
+        nr = rs.stop - b0
+        op = torch.zeros((nr, h))                  # bf16(m_{t-1}) in f32
+        cs, ms = torch.zeros((nr, h)), torch.zeros((nr, h))
+        for t in range(t_max):
+            nxt = torch.zeros((nr, h))
+            for q in range(cluster):
+                nu = max(0, min(u, h - q * u))
+                if nu == 0:
+                    continue
+                us = slice(q * u, q * u + nu)
+                cols = torch.cat([torch.arange(g * h + q * u,
+                                               g * h + q * u + nu)
+                                  for g in range(4)])
+                pre = (op @ wm[:, cols]).view(nr, 4, nu)
+                x4 = xw[t, rs].view(nr, 4, h)[:, :, us]
+                c_prev, m_prev = cs[:, us], ms[:, us]
+                gg = torch.tanh(x4[:, 0] + pre[:, 0])
+                ig = torch.sigmoid(x4[:, 1] + pre[:, 1] + c_prev * ph[0, us])
+                fg = torch.sigmoid(x4[:, 2] + pre[:, 2] + c_prev * ph[1, us])
+                c_raw = fg * c_prev + ig * gg
+                og = torch.sigmoid(x4[:, 3] + pre[:, 3] + c_raw * ph[2, us])
+                m_raw = og * torch.tanh(c_raw)
+                mt = mask[t, rs][:, None]
+                c_new = c_raw * mt + c_prev * (1.0 - mt)
+                m_new = m_raw * mt + m_prev * (1.0 - mt)
+                cs[:, us], ms[:, us] = c_new, m_new
+                m_out[t, rs, us], c_out[t, rs, us] = m_new, c_new
+                craw_out[t, rs, us] = c_raw
+                for g, v in enumerate((gg, ig, fg, og)):
+                    gates[t, rs, g * h + q * u:g * h + q * u + nu] = v.to(_BF)
+                nxt[:, us] = m_new.to(_BF).to(_F32)
+            op = nxt
+    return m_out, c_out, craw_out, gates
+
+
+def cluster_bwd_model(mask, gates, c_raw, c, gm, w_m, ph, cluster, rows):
+    """Kernel 5's cluster design (csrc/lstm_bwd.cu lstm_bwd_rec_kernel,
+    its v1 instance) in float32 torch, with its partition: CTA q owns
+    units [q*U, (q+1)*U) (U = bwd_units) and reads its slice of W_m as
+    `bwd_weight_slices` lays it out in bf16; each step, from T-1 down, it
+    reads the STORED c_raw, writes its units' dgifo unrounded into dxw,
+    takes bf16(dgifo) as the operand of its partial dm over all H units,
+    and scatters that into the receive slots of the units' owners, who
+    sum their C slots in the order q = 0..C-1.  Returns dxw [T, B, 4H]."""
+    t_max, b, h = gm.shape
+    u = lstm_cuda.bwd_units(h, cluster, True)
+    plan = lstm_cuda.BwdPlan(cluster, rows, u, 0)
+    wsl = lstm_cuda.bwd_weight_slices(w_m.to(_BF), plan, True)
+    wsl = wsl[:, :h, :4 * u].to(_F32)              # [C, H, 4U]: u', j
+    pad = cluster * u - h
+    dxw = torch.zeros((t_max, b, 4 * h))
+    for b0 in range(0, b, rows):
+        rs = slice(b0, min(b, b0 + rows))
+        nr = rs.stop - b0
+        recv = torch.zeros((2, cluster, cluster, nr, u))   # buf, owner, slot
+        dc, dmp = torch.zeros((cluster, nr, u)), torch.zeros((cluster, nr, u))
+        for t in range(t_max - 1, -1, -1):
+            op = torch.zeros((cluster, nr, 4 * u))
+            for q in range(cluster):
+                nu = max(0, min(u, h - q * u))
+                if nu == 0:
+                    continue
+                us = slice(q * u, q * u + nu)
+                dm_in = torch.zeros((nr, nu))
+                if t + 1 < t_max:
+                    for p in range(cluster):               # the fixed order
+                        dm_in = dm_in + recv[t & 1, q, p, :, :nu]
+                gt = gates[t, rs].to(_F32)
+                gg, ig, fg, og = (gt[:, k * h:(k + 1) * h][:, us]
+                                  for k in range(4))
+                c_prev = c[t - 1, rs, us] if t > 0 else torch.zeros((nr, nu))
+                tanh_c = torch.tanh(c_raw[t, rs, us])
+                mt = mask[t, rs][:, None]
+                dm_total = gm[t, rs, us] + (dm_in + dmp[q, :, :nu])
+                dm_raw = dm_total * mt
+                dc_in = dc[q, :, :nu]
+                dc_raw = dc_in * mt
+                do_ = dm_raw * tanh_c
+                dc_raw = dc_raw + dm_raw * og * (1.0 - tanh_c * tanh_c)
+                do_pre = do_ * og * (1.0 - og)
+                dc_raw = dc_raw + do_pre * ph[2, us]
+                di_pre = dc_raw * gg * ig * (1.0 - ig)
+                df_pre = dc_raw * c_prev * fg * (1.0 - fg)
+                dg_pre = dc_raw * ig * (1.0 - gg * gg)
+                dc[q, :, :nu] = (dc_raw * fg + di_pre * ph[0, us]
+                                 + df_pre * ph[1, us] + dc_in * (1.0 - mt))
+                dmp[q, :, :nu] = dm_total * (1.0 - mt)
+                for g, d in enumerate((dg_pre, di_pre, df_pre, do_pre)):
+                    dxw[t, rs, g * h + q * u:g * h + q * u + nu] = d
+                    op[q, :, g * u:g * u + nu] = d.to(_BF).to(_F32)
+            if t == 0:
+                break
+            for q in range(cluster):                       # reduce-scatter
+                part = torch.nn.functional.pad(op[q] @ wsl[q].t(), (0, pad))
+                for p in range(cluster):
+                    recv[(t - 1) & 1, p, q] = part[:, p * u:(p + 1) * u]
+    return dxw
+
+
+# (T, B, H, rows): with C=4 the last CTA owns no unit (H=10) or one (H=13);
+# rows=2 cuts B=5 into three clusters of rows, the last ragged
+MODEL_CASES = [(9, 3, 10, 16), (7, 5, 13, 2)]
+
+
+@pytest.mark.parametrize("t,b,h,rows", MODEL_CASES)
+def test_cluster_fwd_model_matches_plain(t, b, h, rows):
+    """The algorithm of kernel 4's cluster design, which cannot run here:
+    the model above at C=4, split by units, gives lstm_scan_fwd_ref's m,
+    c, c_raw and gates.  Both round the same operand to bf16 and sum in
+    float32, in another order: rtol 1e-5 / atol 1e-6 (float32 rounding),
+    the gates to one bf16 step (rtol 2**-8)."""
+    a = scan_inputs(10 * t + b, t=t, b=b, h=h)
+    xw, mask, w_m, ph = (torch.from_numpy(a[k]) for k in
+                         ("xw", "mask", "w_m", "ph"))
+    got = cluster_fwd_model(xw, mask, w_m, ph, 4, rows)
+    want = lstm_v1_cuda.lstm_scan_fwd_ref(xw, mask, w_m.to(_BF), ph)
+    for name, g, w in zip(("m", "c", "c_raw"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6, msg=name)
+    torch.testing.assert_close(got[3].float(), want[3].float(),
+                               rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("t,b,h,rows", MODEL_CASES)
+def test_cluster_bwd_model_matches_plain_and_jax(t, b, h, rows):
+    """The algorithm of kernel 5's cluster design, which cannot run here:
+    the model above at C=4, on the plain kernel 4's residuals, gives
+    lstm_scan_bwd_ref's dxw to float32 rounding in another order (rtol
+    1e-5 / atol 1e-6: both take bf16(dgifo) and bf16 W_m with float32
+    sums), and the JAX `lstm_scan` VJP's dxw (Pallas kernels in interpret
+    mode, their own residuals) at the JAX bf16 gradient tolerance, rtol
+    5e-2 / atol 5e-3 (tests/test_lstm_pallas.py:78)."""
+    a = scan_inputs(10 * t + b + 1, t=t, b=b, h=h)
+    xw, mask, w_m, ph, gm = (torch.from_numpy(a[k]) for k in
+                             ("xw", "mask", "w_m", "ph", "gm"))
+    m, c, c_raw, gates = lstm_v1_cuda.lstm_scan_fwd_ref(xw, mask,
+                                                        w_m.to(_BF), ph)
+    got = cluster_bwd_model(mask, gates, c_raw, c, gm, w_m, ph, 4, rows)
+    want = lstm_v1_cuda.lstm_scan_bwd_ref(mask, gates, c_raw, c, gm,
+                                          w_m.to(_BF), ph)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    _, vjp = jax.vjp(lambda x: jlp.lstm_scan(x, j["mask"][:, :, None],
+                                             j["w_m"], j["ph"], True),
+                     j["xw"])
+    (dxw_j,) = vjp(j["gm"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(dxw_j), rtol=5e-2,
+                               atol=5e-3)
