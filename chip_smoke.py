@@ -26,6 +26,32 @@ Phases, one JSON line each:
           the CPU (plain versions), on the arc-packed 2000-word TLG and
           the dense-rows 1000-word TLG: words identical, costs within
           1e-4 relative.
+  skip    blank-skip, every recipe's decode setting (threshold 0.98): (i)
+          the search phase's posteriors compacted on the card and on the
+          CPU: kept counts, bucket and time_map equal, merged columns
+          within SKIP_ATOL; (ii) the full and the compacted search on the
+          card (wall ms, median of 3, profiler off; per original frame;
+          kernel 2's launches of each), the compacted search's words on
+          the card equal to the CPU's (costs within COST_RTOL), and how
+          many utterances keep the full search's words; (iii)
+          recipes.run.run_search with blank_skip on the main phase's
+          batch: kernels 1 and 2 launched, finite costs, overflow 0; (iv)
+          greedy_decode_logits of the main phase's lp, card against CPU.
+  stream  the streaming path at full width: a unidirectional 4 x 320
+          model (120-d input, 72 targets, random weights from a seed) on
+          the main phase's 8 utterances in 16-frame chunks (160 ms):
+          (i) offline posteriors, 4 lstm_fwd launches; (ii)
+          StreamingAcousticModel chunk by chunk (the carried torch-op
+          scan): no LSTM kernel launched, lp within LP_ATOL of the offline
+          and of the same chunks on the CPU, and in f32 compute within
+          STREAM_ATOL of the CPU; (iii) the
+          offline lp chunk by chunk into StreamingBeamDecoder on the
+          packed TLG: the one-shot decode's words, costs within
+          STREAM_COST_RTOL; (iv) StreamingPipeline: the words of the
+          card's one-shot decode of its own streamed lp.  Per chunk: the
+          AM step's, accept's, partial's and the pipeline's ms (host
+          clock, synchronized), the real-time factor (pipeline ms /
+          160 ms) and kernel 2's launches.
   lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
           mixed lengths with a length-0 row, state_bf16 on and off): first
           kernel lstm_fwd with residuals vs its plain version (m and c at
@@ -193,6 +219,22 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-3, 5e-2
 # (2^-9 relative) that the next layer reads; four layers deep
 LP_ATOL = 5e-2
 COST_RTOL = 1e-4
+# blank-skip (every recipe's decode setting) and its check: kept counts,
+# time_map and lengths exact, card vs CPU; the merged columns are
+# differences of cumsums that reach ~10^3 at T=512, summed in another
+# order on the card, so a few ulp of that
+SKIP_THRESHOLD = 0.98
+SKIP_ATOL = 1e-3
+# streaming: 16-frame chunks (160 ms at WSJ's 10 ms frames).  The carried
+# scan runs the same torch ops on the card and the CPU (f32 state); in
+# bf16 compute a last-bit difference of a matmul sum can flip the bf16
+# rounding of m, as LP_ATOL says (3.9e-4 measured at 4 x 320, T=512), so
+# the streamed lp is held to LP_ATOL there and to STREAM_ATOL in f32
+# compute, where only the summation order differs
+CHUNK = 16
+WSJ_FRAME_MS = 10.0
+STREAM_ATOL = 1e-4
+STREAM_COST_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_OPS = 67e12                # float32 outside the tensor cores
@@ -513,6 +555,18 @@ def synth_posteriors(prons, num_tokens, rng):
     return ll - np.log(np.exp(ll).sum(-1, keepdims=True))
 
 
+def search_posteriors(lang, lex):
+    """synth_posteriors over 256 of the graph's own prons (seeded)."""
+    rng = np.random.default_rng(SEED + 11)
+    max_pron = max(len(p) for _, p in lex)
+    pick = rng.choice(len(lex), size=256, replace=False)
+    prons = np.full((256, max_pron), -1, np.int32)
+    for r, i in enumerate(pick):
+        for c, u in enumerate(lex[int(i)][1]):
+            prons[r, c] = lang.tokens[u]
+    return synth_posteriors(prons, 71, rng)
+
+
 def phase_search(dev, graphs):
     from eesen_tpu_torch.decoder.beam import (
         BeamSearchConfig, DeviceGraph, make_beam_decoder, traceback,
@@ -522,14 +576,7 @@ def phase_search(dev, graphs):
     bcfg = BeamSearchConfig(**DECODE)
     lens = np.asarray(LENGTHS, np.int32)
     for tag, (g, lang, lex) in graphs.items():
-        rng = np.random.default_rng(SEED + 11)
-        max_pron = max(len(p) for _, p in lex)
-        pick = rng.choice(len(lex), size=256, replace=False)
-        prons = np.full((256, max_pron), -1, np.int32)
-        for r, i in enumerate(pick):
-            for c, u in enumerate(lex[int(i)][1]):
-                prons[r, c] = lang.tokens[u]
-        ll = synth_posteriors(prons, 71, rng)
+        ll = search_posteriors(lang, lex)
         dec = make_beam_decoder(g, bcfg)
         before = counters()
         res_dev = traceback(dec(ll, lens, DeviceGraph.put(g, device=dev)),
@@ -548,6 +595,280 @@ def phase_search(dev, graphs):
         out[tag] = {"words": [len(w) for w, _ in res_dev],
                     "dedup_launches": launched["dedup_prune"],
                     "cpu_decode_s": cpu_s}
+    return out
+
+
+def _results_equal(what, got, want, rtol):
+    """Words equal, costs within rtol relative, per utterance."""
+    for i, ((w_g, c_g), (w_w, c_w)) in enumerate(zip(got, want)):
+        if w_g != w_w or not abs(c_g - c_w) <= rtol * abs(c_w):
+            raise AssertionError(
+                f"{what} utt {i}: {len(w_g)} words cost {c_g}, want "
+                f"{len(w_w)} words cost {c_w}"
+            )
+
+
+def _wall_ms(fn, reps: int):
+    """Median wall ms of fn() over reps calls (host clock, synchronized,
+    profiler off), and the last call's result."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), res
+
+
+def phase_skip(dev, graphs, state):
+    import dataclasses
+
+    import torch
+    from eesen_tpu_torch.decoder.beam import (
+        BeamSearchConfig, DeviceGraph, make_beam_decoder, traceback,
+    )
+    from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
+    from eesen_tpu_torch.decoder.greedy import greedy_decode_logits
+    from eesen_tpu_torch.recipes.run import run_search
+
+    out = {}
+    bcfg = BeamSearchConfig(**DECODE)
+    lens = np.asarray(LENGTHS, np.int32)
+    for tag, (g, lang, lex) in graphs.items():
+        ll = search_posteriors(lang, lex)
+        ll_dev = torch.from_numpy(ll).to(dev)
+        # (i) the compaction on the card against the CPU
+        cf = compact_blank_frames(ll_dev, lens, SKIP_THRESHOLD)
+        cf_cpu = compact_blank_frames(ll, lens, SKIP_THRESHOLD)
+        n = cf_cpu.lengths.numpy()
+        if not (np.array_equal(cf.lengths.cpu().numpy(), n)
+                and cf.loglikes.shape == cf_cpu.loglikes.shape):
+            raise AssertionError(f"{tag}: kept counts or bucket differ")
+        err = 0.0
+        for i, k in enumerate(n):
+            if not torch.equal(cf.time_map[i, :k].cpu(),
+                               cf_cpu.time_map[i, :k]):
+                raise AssertionError(f"{tag} row {i}: time_map differs")
+            err = max(err, float((cf.loglikes[i, :k].cpu()
+                                  - cf_cpu.loglikes[i, :k]).abs().max()))
+        if not err <= SKIP_ATOL:
+            raise AssertionError(f"{tag}: compacted loglikes differ by {err}")
+        # (ii) full and compacted search on the card, profiler off
+        dec = make_beam_decoder(g, bcfg)
+        dg = DeviceGraph.put(g, device=dev)
+        reps = 3
+        before = counters()["dedup_prune"]
+        full_ms, res_full = _wall_ms(lambda: traceback(
+            dec(ll_dev, lens, dg), lens, g.final_weight), reps)
+        full_launches = (counters()["dedup_prune"] - before) // reps
+
+        def skip_decode():
+            c = compact_blank_frames(ll_dev, lens, SKIP_THRESHOLD)
+            return c, traceback(dec(c.loglikes, c.lengths, dg), c.lengths,
+                                g.final_weight)
+
+        before = counters()["dedup_prune"]
+        skip_ms, (cf, res_skip) = _wall_ms(skip_decode, reps)
+        skip_launches = (counters()["dedup_prune"] - before) // reps
+        # the compacted search on the CPU (plain versions)
+        res_cpu = traceback(
+            dec(cf_cpu.loglikes, cf_cpu.lengths,
+                DeviceGraph.put(g, device="cpu")),
+            cf_cpu.lengths, g.final_weight)
+        _results_equal(f"{tag} skip card vs cpu", res_skip, res_cpu,
+                       COST_RTOL)
+        kept = int(n.sum())
+        out[tag] = {
+            "kept_frames": kept, "frames": int(lens.sum()),
+            "kept_share": kept / int(lens.sum()),
+            "compacted_T": int(cf.loglikes.shape[1]),
+            "loglikes_max_abs_err_vs_cpu": err, "atol": SKIP_ATOL,
+            "dedup_launches": {"full": full_launches, "skip": skip_launches},
+            "decode_ms": {"full": full_ms, "skip": skip_ms},
+            "decode_ms_per_frame": {"full": full_ms / T_MAX,
+                                    "skip": skip_ms / T_MAX},
+            "utts_with_full_words": sum(
+                w_s == w_f for (w_s, _), (w_f, _) in zip(res_skip, res_full)),
+        }
+    # (iii) the serving entry with the recipes' blank-skip
+    g = graphs["packed"][0]
+    feats = {f"utt{i}": state["arr"][i, :n]
+             for i, n in enumerate(state["lens"])}
+    reset_counters()
+    runs = list(run_search(
+        state["params"], state["cfg"], g, feats, state["log_priors"],
+        dataclasses.replace(bcfg, blank_skip=SKIP_THRESHOLD), batch_size=B,
+        device=dev))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counters().items()
+                if k in ("lstm_fwd", "dedup_prune")}
+    if dev.type == "cuda" and min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    (chunk, lp, kept, res), = runs
+    costs = [c for _, c in traceback(res, kept, g.final_weight)]
+    if int(res.overflow.sum()) or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"run_search with blank-skip: costs {costs}")
+    out["run_search"] = {"launches": launches,
+                         "kept_frames": [int(k) for k in kept],
+                         "compacted_T": int(lp.shape[1])}
+    # (iv) greedy decoding of the serving lp on the card and on the CPU
+    greedy = greedy_decode_logits(state["lp"], state["lens"])
+    if greedy != greedy_decode_logits(state["lp"].cpu(), state["lens"]):
+        raise AssertionError("greedy labels differ, card vs cpu")
+    out["greedy_labels_per_utt"] = [len(x) for x in greedy]
+    state["skip_launches"] = {
+        "dedup_prune": out["packed"]["dedup_launches"]["skip"],
+        "run_search": launches}
+    return out
+
+
+def stream_model(dev):
+    import torch
+    from eesen_tpu_torch.models.model import AcousticModelConfig, init_model
+
+    cfg = AcousticModelConfig(input_dim=120, cell_dim=320, num_layers=4,
+                              num_targets=72, bidirectional=False)
+    return cfg, init_model(torch.Generator().manual_seed(SEED + 5), cfg,
+                           device=dev)
+
+
+def stream_am(sam, feats, lens, timed=False):
+    """The features through sam in CHUNK-frame chunks -> (log-posteriors
+    [B, T, V], ms per chunk or None)."""
+    import torch
+
+    st = sam.start(feats.shape[0])
+    outs, times = [], []
+    for t0 in range(0, feats.shape[1], CHUNK):
+        t1 = min(t0 + CHUNK, feats.shape[1])
+        cl = (lens - t0).clamp(0, t1 - t0)
+        if timed:
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+        logits, st = sam.step(st, feats[:, t0:t1], cl)
+        if timed:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - a) * 1e3)
+        outs.append(logits)
+    lp = torch.log_softmax(torch.cat(outs, dim=1), dim=-1)
+    return lp, (statistics.median(times) if timed else None)
+
+
+def phase_stream(dev, graphs, state):
+    import dataclasses
+
+    import torch
+    from eesen_tpu_torch.decoder.beam import (
+        BeamSearchConfig, DeviceGraph, StreamingBeamDecoder,
+        make_beam_decoder, traceback,
+    )
+    from eesen_tpu_torch.models.streaming import (
+        StreamingAcousticModel, StreamingPipeline,
+    )
+    from eesen_tpu_torch.recipes.run import posteriors
+
+    g = graphs["packed"][0]
+    bcfg = BeamSearchConfig(**DECODE)
+    cfg, params = stream_model(dev)
+    arr, lens = state["arr"], state["lens"]
+    feats = torch.from_numpy(arr).to(dev)
+    lens_dev = torch.from_numpy(lens).long().to(dev)
+    valid = torch.from_numpy(np.arange(T_MAX)[None, :] < lens[:, None])
+    out = {"chunk_frames": CHUNK, "chunk_ms_audio": CHUNK * WSJ_FRAME_MS}
+    # (i) offline: 4 launches of kernel 1, one a layer
+    reset_counters()
+    lp_off = posteriors(params, cfg, arr, lens, None, device=dev)
+    torch.cuda.synchronize()
+    out["offline_launches"] = counters()
+    if dev.type == "cuda" and counters()["lstm_fwd"] != cfg.num_layers:
+        raise AssertionError(f"offline forward: {counters()}")
+    # (ii) the carried scan: no LSTM kernel; against offline and the CPU
+    sam = StreamingAcousticModel(params, cfg, device=dev)
+    reset_counters()
+    lp_str, am_ms = stream_am(sam, feats, lens_dev, timed=True)
+    torch.cuda.synchronize()
+    lstm = {k: v for k, v in counters().items() if k.startswith("lstm")}
+    if any(lstm.values()):
+        raise AssertionError(f"the carried scan launched {lstm}")
+    params_cpu = _to_cpu(params)
+    feats_cpu = torch.from_numpy(arr)
+    lens_cpu = torch.from_numpy(lens).long()
+    lp_cpu, _ = stream_am(StreamingAcousticModel(params_cpu, cfg,
+                                                 device="cpu"),
+                          feats_cpu, lens_cpu)
+    # the same chunks in f32 compute, card and CPU: no bf16 rounding to
+    # flip, so the sums' order alone
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    lp32, _ = stream_am(StreamingAcousticModel(params, cfg32, device=dev),
+                        feats, lens_dev)
+    lp32_cpu, _ = stream_am(StreamingAcousticModel(params_cpu, cfg32,
+                                                   device="cpu"),
+                            feats_cpu, lens_cpu)
+    err_off = float((lp_str - lp_off).abs().cpu()[valid].max())
+    err_cpu = float((lp_str.cpu() - lp_cpu).abs()[valid].max())
+    err32 = float((lp32.cpu() - lp32_cpu).abs()[valid].max())
+    out["am"] = {"lstm_launches": lstm, "ms_per_chunk": am_ms,
+                 "lp_max_abs_err_vs_offline": err_off,
+                 "lp_max_abs_err_vs_cpu": err_cpu, "atol": LP_ATOL,
+                 "f32_lp_max_abs_err_vs_cpu": err32, "f32_atol": STREAM_ATOL}
+    if not (err_off <= LP_ATOL and err_cpu <= LP_ATOL
+            and err32 <= STREAM_ATOL):
+        raise AssertionError(f"streamed lp: {out['am']}")
+    # (iii) the offline lp chunk by chunk into StreamingBeamDecoder
+    dg = DeviceGraph.put(g, device=dev)
+    one_shot = make_beam_decoder(g, bcfg)
+    ref = traceback(one_shot(lp_off, lens, dg), lens, g.final_weight)
+    dec = StreamingBeamDecoder(g, bcfg, device=dev)
+    st = dec.start(B)
+    act = torch.arange(T_MAX, device=dev)[None, :] < lens_dev[:, None]
+    acc_ms, part_ms = [], []
+    before = counters()["dedup_prune"]
+    for t0 in range(0, T_MAX, CHUNK):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        st = dec.accept(st, lp_off[:, t0:t0 + CHUNK], act[:, t0:t0 + CHUNK])
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        dec.partial(st)
+        acc_ms.append((b - a) * 1e3)
+        part_ms.append((time.perf_counter() - b) * 1e3)
+    res = dec.finish(st)
+    stream_launches = counters()["dedup_prune"] - before
+    _results_equal("streaming decoder vs one-shot", res, ref, STREAM_COST_RTOL)
+    out["decoder"] = {"accept_ms_per_chunk": statistics.median(acc_ms),
+                      "partial_ms_per_chunk": statistics.median(part_ms),
+                      "dedup_launches": stream_launches,
+                      "words_per_utt": [len(w) for w, _ in res]}
+    # (iv) the pipeline against the one-shot decode of its own streamed lp
+    pipe = StreamingPipeline(params, cfg, g, bcfg, device=dev)
+    ref_str = traceback(one_shot(lp_str, lens, dg), lens, g.final_weight)
+    reset_counters()
+    st = pipe.start(B)
+    step_ms = []
+    for t0 in range(0, T_MAX, CHUNK):
+        t1 = min(t0 + CHUNK, T_MAX)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        st = pipe.step(st, feats[:, t0:t1], (lens_dev - t0).clamp(0, t1 - t0))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - a) * 1e3)
+    res = pipe.finish(st)
+    pipe_launches = counters()
+    _results_equal("pipeline vs one-shot", res, ref_str, STREAM_COST_RTOL)
+    if pipe_launches["lstm_fwd"] or (dev.type == "cuda"
+                                     and pipe_launches["dedup_prune"] == 0):
+        raise AssertionError(f"pipeline launches: {pipe_launches}")
+    ms = statistics.median(step_ms)
+    out["pipeline"] = {"ms_per_chunk": ms,
+                       "real_time_factor": ms / (CHUNK * WSJ_FRAME_MS),
+                       "launches": pipe_launches,
+                       "chunks": len(step_ms)}
+    state["stream_launches"] = {"dedup_prune": stream_launches,
+                                "pipeline": pipe_launches,
+                                "offline": out["offline_launches"]}
     return out
 
 
@@ -1901,6 +2222,10 @@ def kernels_report(state, timing):
          "train_shape_projection_ms": ltt["projection_ms"],
          "train_shape_recurrence_ms": ltt["recurrence_ms"],
          "train_shape_projection": ltt["projection"],
+         "skip_run_search_launches":
+             state["skip_launches"]["run_search"]["lstm_fwd"],
+         "stream_offline_launches":
+             state["stream_launches"]["offline"]["lstm_fwd"],
          "libri_serve_launches": state["libri_serve_launches"]["lstm_fwd"],
          "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
          "h640": h640["lstm_fwd"]},
@@ -1924,6 +2249,12 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/dedup_prune.cu",
          "replaces": "eesen_tpu/ops/beam_pallas.py:110",
          "launches": state["launches"]["dedup_prune"],
+         "skip_launches": state["skip_launches"]["dedup_prune"],
+         "skip_run_search_launches":
+             state["skip_launches"]["run_search"]["dedup_prune"],
+         "stream_launches": state["stream_launches"]["dedup_prune"],
+         "pipeline_launches":
+             state["stream_launches"]["pipeline"]["dedup_prune"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
          "plain_ms": dt["plain_ms"],
@@ -1975,6 +2306,8 @@ def run(dev) -> bool:
     if phase("main", phase_main, dev, graphs, state) is None:
         return False
     phase("search", phase_search, dev, graphs)
+    phase("skip", phase_skip, dev, graphs, state)
+    phase("stream", phase_stream, dev, graphs, state)
     if dev.type == "cuda":
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)

@@ -23,10 +23,17 @@ tid-1 acoustic column shift), with static shapes:
   parent slot plus up to `max_olabels` output labels per slot, and
   `traceback` walks them on the host.
 
-The frame loop is a Python loop of tensor operations; nothing in it waits
-for the device.  Not ported yet (they raise NotImplementedError): hub
-graphs, approx_top_k, the light_* dedup modes, compact arc budgets,
-scan_unroll > 1, and blank-skip (decoder/frame_skip.py).
+The frame loop is a Python loop of tensor operations.  The same frame
+step serves the one-shot `make_beam_decoder` and, through
+`make_beam_decoder(..., _internals=True)`, the chunked entry of
+`StreamingBeamDecoder` and models/streaming.StreamingPipeline: the active
+set is the carry between chunks, and `compose_chunk_paths` folds a
+chunk's per-frame backpointers into one [B, K] summary on the device.
+Blank-skip (`cfg.blank_skip`, decoder/frame_skip.py) is applied by the
+callers (recipes/run.run_search, StreamingBeamDecoder.accept), not by the
+search, as in the JAX package.  Not ported yet (they raise
+NotImplementedError): hub graphs, approx_top_k, the light_* dedup modes,
+compact arc budgets and scan_unroll > 1.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
 from eesen_tpu_torch.decoder.graph_compile import CompiledGraph
 from eesen_tpu_torch.models.model import as_tensor, check_device
 from eesen_tpu_torch.ops import beam_cuda
@@ -63,13 +71,18 @@ class BeamSearchConfig:
     funnel_mult: int = 0
     # keep the active set sorted by state id
     sort_active: bool = False
+    # blank-frame skipping: frames whose blank posterior exceeds this are
+    # merged into run-summed frames before the search
+    # (decoder/frame_skip.py), by the callers; 0 disables
+    blank_skip: float = 0.0
+    # kept-frame counts are rounded up to this bucket
+    blank_skip_bucket: int = 64
     # --- not ported yet: a non-default value raises NotImplementedError
     approx_top_k: bool = False
     light_eps_dedup: bool = False
     light_emit_dedup: bool = False
     light_closure_dedup: bool = False
     scan_unroll: int = 1
-    blank_skip: float = 0.0
     arc_budget_emit: int = 0
     arc_budget_x: int = 0
 
@@ -82,7 +95,6 @@ def _check_ported(graph: CompiledGraph, cfg: BeamSearchConfig) -> None:
         ("light_emit_dedup", cfg.light_emit_dedup),
         ("light_closure_dedup", cfg.light_closure_dedup),
         ("scan_unroll > 1", cfg.scan_unroll > 1),
-        ("blank_skip", cfg.blank_skip > 0.0),
         ("arc_budget_emit", cfg.arc_budget_emit > 0),
         ("arc_budget_x", cfg.arc_budget_x > 0),
         ("hub graphs", graph.has_hubs),
@@ -307,11 +319,60 @@ def _append_olabel(olab: torch.Tensor, new: torch.Tensor,
     return appended, overflow
 
 
+def compose_chunk_paths(
+    parent: torch.Tensor,    # [Tc, B, K] per-frame parent slots
+    olabels: torch.Tensor,   # [Tc, B, K, L] per-frame output labels (0 = none)
+    cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Collapse a chunk's per-frame backpointers into ONE summary, on
+    their device: (entry [B, K], words [B, K, cap], wcount [B, K], wovf
+    [B, K]), all int32.
+
+    entry[b, k] = the slot at chunk start that slot k at chunk end
+    descends from; words[b, k] = the olabels emitted along that path, in
+    order (truncated at `cap`, overflow counted per slot).  Composing
+    summaries chunk by chunk makes a streaming traceback walk chunks, not
+    frames."""
+    tc, b, k = parent.shape
+    dev = parent.device
+    entry = torch.arange(k, dtype=torch.int32, device=dev).repeat(b, 1)
+    words = torch.zeros((b, k, cap), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    pos = torch.arange(cap, dtype=torch.int32, device=dev)
+    for t in range(tc):
+        p_t = parent[t].long()
+        entry = entry.gather(1, p_t)
+        words = words.gather(1, p_t[..., None].expand(-1, -1, cap))
+        cnt = cnt.gather(1, p_t)
+        ovf = ovf.gather(1, p_t)
+        for li in range(olabels.shape[-1]):
+            new = olabels[t, ..., li]
+            do = new != 0
+            can = cnt < cap
+            idx = cnt.clamp(0, cap - 1)
+            words = torch.where(
+                (pos == idx[..., None]) & (do & can)[..., None],
+                new[..., None], words,
+            )
+            ovf = ovf + (do & ~can).int()
+            cnt = cnt + (do & can).int()
+    return entry, words, cnt, ovf
+
+
 def make_beam_decoder(
     graph: CompiledGraph, cfg: BeamSearchConfig = BeamSearchConfig(),
+    _internals: bool = False,
 ):
     """Build a decoder: fn(loglikes [B, T, V], lengths [B], dg) ->
-    BeamOutputs on the device of `dg`."""
+    BeamOutputs on the device of `dg`.  With `_internals`, return the
+    chunked entry points instead, as the JAX package does:
+
+    - init_chunk(b, dg) -> (carry, init_olabels [B, K, L]);
+    - decode_chunk(carry, loglikes [B, Tc, V], active [B, Tc] bool, dg)
+      -> (carry, (states, scores, parent, olabels, lat_mask)), each
+      [Tc, B, K(, L)], the carry (states, scores, offsets, overflow) of
+      the chunk's last frame."""
     _check_ported(graph, cfg)
     k = cfg.max_active
     dense = use_dense_rows(graph)
@@ -461,19 +522,17 @@ def make_beam_decoder(
                 f"dense={dense})"
             )
 
-    def decode(loglikes, lengths, dg: DeviceGraph) -> BeamOutputs:
-        _check_layout(dg)
-        dev = dg.final_weight.device
-        loglikes = as_tensor(loglikes, torch.float32).to(dev)
-        lengths = as_tensor(lengths, torch.int64).to(dev)
-        b, t_max, _ = loglikes.shape
-        carry, init_olab = init_active_set(b, dg)
+    def run_frames(carry, ll_tm: torch.Tensor, act: torch.Tensor,
+                   dg: DeviceGraph):
+        """The frame step over ll_tm [T, B, V] and act [T, B] bool ->
+        (carry, (states, scores, parent, olabels, lat_mask)), stacked
+        [T, B, K(, L)]."""
+        t_max, b, _ = ll_tm.shape
+        dev = ll_tm.device
         states = torch.empty((t_max, b, k), dtype=torch.int32, device=dev)
         scores = torch.empty((t_max, b, k), dtype=torch.float32, device=dev)
         parent = torch.empty((t_max, b, k), dtype=torch.int32, device=dev)
         olabels = torch.empty((t_max, b, k, L), dtype=torch.int32, device=dev)
-        act = torch.arange(t_max, device=dev)[:, None] < lengths[None, :]
-        ll_tm = loglikes.transpose(0, 1)
         for t in range(t_max):
             carry, out = frame(carry, ll_tm[t], act[t], dg)
             states[t], scores[t], parent[t], olabels[t] = out
@@ -483,10 +542,201 @@ def make_beam_decoder(
             lat_mask = finite & (scores <= fbest + lat_beam)
         else:
             lat_mask = finite
-        return BeamOutputs(states, scores, parent, olabels, init_olab,
-                           carry[3], lat_mask)
+        return carry, (states, scores, parent, olabels, lat_mask)
 
+    def decode(loglikes, lengths, dg: DeviceGraph) -> BeamOutputs:
+        _check_layout(dg)
+        dev = dg.final_weight.device
+        loglikes = as_tensor(loglikes, torch.float32).to(dev)
+        lengths = as_tensor(lengths, torch.int64).to(dev)
+        b, t_max, _ = loglikes.shape
+        carry, init_olab = init_active_set(b, dg)
+        act = torch.arange(t_max, device=dev)[:, None] < lengths[None, :]
+        carry, (st, sc, par, ol, lm) = run_frames(
+            carry, loglikes.transpose(0, 1), act, dg
+        )
+        return BeamOutputs(st, sc, par, ol, init_olab, carry[3], lm)
+
+    def init_chunk(b: int, dg: DeviceGraph):
+        _check_layout(dg)
+        return init_active_set(b, dg)
+
+    def decode_chunk(carry, loglikes, active, dg: DeviceGraph):
+        _check_layout(dg)
+        dev = dg.final_weight.device
+        loglikes = as_tensor(loglikes, torch.float32).to(dev)
+        active = as_tensor(active, torch.bool).to(dev)
+        return run_frames(
+            carry, loglikes.transpose(0, 1), active.transpose(0, 1), dg
+        )
+
+    if _internals:
+        return init_chunk, decode_chunk
     return decode
+
+
+def pack_summary(summary) -> torch.Tensor:
+    """(entry, words, wcount, wovf) -> one [B, K, 3 + cap] int32 tensor,
+    so that a chunk's summary reaches the host in one copy."""
+    entry, words, cnt, ovf = summary
+    return torch.cat(
+        [entry[..., None], cnt[..., None], ovf[..., None], words], dim=-1
+    )
+
+
+def unpack_summary(packed: np.ndarray):
+    """The host side of `pack_summary`: -> (entry, words, wcount, wovf)."""
+    return packed[..., 0], packed[..., 3:], packed[..., 1], packed[..., 2]
+
+
+class StreamingBeamDecoder:
+    """Chunked (online) WFST decoding with carried search state
+    (counterpart of the JAX package's StreamingBeamDecoder).
+
+    The active set (states, scores, arc offsets, overflow) is an explicit
+    carry, so audio is decoded chunk by chunk.  Each chunk's per-frame
+    backpointers are composed on the device into one [B, K] summary
+    (`compose_chunk_paths`) and copied to the host once per chunk, so
+    finish() walks chunks, not frames, and partial() gives the current
+    best hypothesis after any chunk.  Results equal a one-shot decode of
+    the concatenated log-likelihoods.  The per-chunk word cap is sized
+    from the chunk length when summary_words is None (`summarize`);
+    overflow past an explicit cap raises OverflowError in finish() and
+    truncates in partial(), which sets `state["truncated"]`.
+
+        dec = StreamingBeamDecoder(graph, cfg)
+        st = dec.start(batch_size)
+        for chunk in chunks:             # [B, Tc, V] log-likes
+            st = dec.accept(st, chunk)   # optional active mask [B, Tc]
+            hyps = dec.partial(st)       # optional: current best words
+        results = dec.finish(st)         # [(words, cost)] * B
+
+    With cfg.blank_skip > 0 each chunk is blank-run merged before the
+    search (decoder/frame_skip.py); `active` masks must then be
+    contiguous prefixes per row (trailing padding).
+    """
+
+    def __init__(
+        self, graph: CompiledGraph,
+        cfg: BeamSearchConfig = BeamSearchConfig(),
+        summary_words: Optional[int] = None,
+        device="cuda",
+    ):
+        self._init, self._chunk = make_beam_decoder(
+            graph, cfg, _internals=True
+        )
+        self.graph = graph
+        self.cfg = cfg
+        self.summary_words = summary_words
+        self.dg = DeviceGraph.put(graph, device=device)
+
+    def summarize(self, carry, loglikes, active):
+        """One chunk of the search -> (carry, packed summary on the
+        device, `pack_summary`)."""
+        carry, (_, _, par, ol, _) = self._chunk(
+            carry, loglikes, active, self.dg
+        )
+        cap = self.summary_words
+        if cap is None:
+            # one word per 2 frames (several-fold above real speech
+            # rates), at least 16, at most the chunk's absolute emission
+            # capacity tc * L, so short chunks can never overflow
+            tc, n_ol = ol.shape[0], ol.shape[-1]
+            cap = min(max(16, (tc + 1) // 2), tc * n_ol)
+        return carry, pack_summary(compose_chunk_paths(par, ol, cap))
+
+    def start(self, batch_size: int) -> dict:
+        carry, init_olab = self._init(batch_size, self.dg)
+        return {
+            "carry": carry, "init_olab": _np(init_olab),
+            "chunks": [],            # host (entry, words, cnt, ovf)
+            "batch": batch_size, "tframes": 0,
+        }
+
+    def accept(self, state: dict, loglikes, active=None) -> dict:
+        dev = self.dg.final_weight.device
+        loglikes = as_tensor(loglikes, torch.float32).to(dev)
+        b, t_c, _ = loglikes.shape
+        if active is None:
+            active = torch.ones((b, t_c), dtype=torch.bool, device=dev)
+        else:
+            active = as_tensor(active, torch.bool).to(dev)
+        if self.cfg.blank_skip > 0.0:
+            # per-chunk blank-run merging: a run that spans a chunk
+            # boundary becomes one merged frame per chunk
+            cf = compact_blank_frames(
+                loglikes, active.sum(dim=1, dtype=torch.int32),
+                self.cfg.blank_skip, bucket=self.cfg.blank_skip_bucket,
+            )
+            loglikes = cf.loglikes
+            t_c = loglikes.shape[1]
+            active = (torch.arange(t_c, device=dev)[None, :]
+                      < cf.lengths[:, None])
+        carry, summary = self.summarize(state["carry"], loglikes, active)
+        state["carry"] = carry
+        state["chunks"].append(unpack_summary(_np(summary)))  # one copy
+        state["tframes"] += t_c
+        return state
+
+    def partial(self, state: dict) -> List[List[int]]:
+        """Current best-path word hypotheses (ignores final weights: the
+        utterances are still in progress)."""
+        scores = _np(state["carry"][1])
+        j = np.argmin(np.where(np.isfinite(scores), scores, np.inf), axis=1)
+        return self._walk(state, j.astype(np.int64), strict=False)
+
+    def _walk(
+        self, state: dict, j: np.ndarray, strict: bool = True,
+    ) -> List[List[int]]:
+        b = state["batch"]
+        slots = j.copy()
+        rev: List[List[int]] = [[] for _ in range(b)]
+        state["truncated"] = False
+        for entry, words, cnt, ovf in reversed(state["chunks"]):
+            for i in range(b):
+                s = int(slots[i])
+                if int(ovf[i, s]) > 0:
+                    if strict:
+                        raise OverflowError(
+                            "chunk path emitted more than "
+                            f"{words.shape[-1]} labels; re-run with a "
+                            "larger summary_words (or summary_words="
+                            "None to size it from the chunk length)"
+                        )
+                    # partial(): truncate and flag; an in-progress
+                    # hypothesis may be dropped later anyway
+                    state["truncated"] = True
+                n = int(cnt[i, s])
+                rev[i].extend(int(w) for w in words[i, s, :n][::-1])
+                slots[i] = int(entry[i, s])
+        out = []
+        for i in range(b):
+            lead = [int(w) for w in state["init_olab"][i, int(slots[i])]
+                    if w != 0]
+            out.append(lead + rev[i][::-1])
+        return out
+
+    def finish(self, state: dict) -> List[Tuple[List[int], float]]:
+        states = _np(state["carry"][0])
+        scores = _np(state["carry"][1])
+        b = state["batch"]
+        fw = self.graph.final_weight
+        valid = states >= 0
+        total = np.where(
+            valid, scores + fw[np.maximum(states, 0)], np.inf
+        )
+        js = np.empty(b, np.int64)
+        costs = np.empty(b, np.float64)
+        for i in range(b):
+            if np.isfinite(total[i]).any():
+                js[i] = int(np.argmin(total[i]))
+                costs[i] = float(total[i, js[i]])
+            else:  # no final state: best partial path
+                sc = np.where(valid[i], scores[i], np.inf)
+                js[i] = int(np.argmin(sc))
+                costs[i] = float(sc[js[i]])
+        words = self._walk(state, js)
+        return [(w, c) for w, c in zip(words, costs)]
 
 
 def traceback(

@@ -18,12 +18,15 @@ masks:
 
 Which route a direction takes (`_direction_scan`):
 
-- with a recurrent-dropout mask (training with `recurrent_dropout > 0`):
-  the plain recurrence in torch ops with autograd, `_dropout_scan`, on
-  the CPU and on the card alike.  It is the branch the JAX package itself
-  takes whenever a mask is given (its XLA scan, bilstm.py:179-233), so
-  on the card it launches no LSTM kernel, as the JAX package launches
-  none there;
+- with a recurrent-dropout mask (training with `recurrent_dropout > 0`),
+  or with a carried state (`carry_in` / `return_carry`, the streaming
+  path of models/streaming.py): the plain recurrence in torch ops with
+  autograd, `_plain_scan`, on the CPU and on the card alike.  It is the
+  branch the JAX package itself takes in both cases (its XLA scan,
+  bilstm.py:167-233): the Pallas kernels, like kernels 1/3 and 4/5 here,
+  always start from zero state and take no mask.  So it is that
+  package's route, not a fallback, and on the card it launches no LSTM
+  kernel, as the JAX package launches none there;
 - otherwise on a CUDA tensor, when `lstm_cuda.fused_launch` takes the
   shape: the fused kernels (ops/lstm_cuda.py, csrc/lstm_fwd.cu forward,
   csrc/lstm_bwd.cu backward through `LstmDirection`), input projection
@@ -43,14 +46,15 @@ with per-step or per-sequence masks, and twiddle (recurrent dropout on
 one direction only, chosen per layer).  Masks are Bernoulli(keep)/keep,
 drawn from the `rng` torch.Generator on the CPU and moved to the
 device, so one seed gives the same masks on the CPU and on the card.
-Forward dropout alone keeps the kernels.  Streaming (`carry_in` /
-`return_carry`) is not ported yet.
+Forward dropout alone keeps the kernels.  A chunked run with the carried
+(c, m) state equals one scan over the concatenation: the mask freeze keeps
+short rows' states intact across chunk boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -141,16 +145,19 @@ def _dropout_mask(
     return (m.to(torch.float32) / keep).to(device)
 
 
-def _dropout_scan(
+def _plain_scan(
     p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: BiLstmConfig,
-    rec_drop_mask: torch.Tensor,
-) -> torch.Tensor:
-    """The recurrence with a recurrent-dropout mask [T or 1, B, H], in
-    plain torch ops with autograd (bilstm.py:179-233): products of
-    `compute_dtype` values summed in float32, f32 state.  no_mem_loss
-    masks the candidate, c = f*c_prev + mask*(i*g); rnndrop masks the
-    cell, c = mask*(f*c_prev + i*g).  Returns m [T, B, H] f32, zero at
-    padded steps."""
+    rec_drop_mask: Optional[torch.Tensor] = None,
+    carry_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    return_carry: bool = False,
+):
+    """The recurrence in plain torch ops with autograd (bilstm.py:179-233):
+    products of `compute_dtype` values summed in float32, f32 state.
+    With a recurrent-dropout mask [T or 1, B, H], no_mem_loss masks the
+    candidate, c = f*c_prev + mask*(i*g), and rnndrop the cell,
+    c = mask*(f*c_prev + i*g).  The state starts from `carry_in` (c, m),
+    each [B, H], or zeros.  Returns m [T, B, H] f32, zero at padded
+    steps, and with `return_carry` also the final (c, m)."""
     t_max, b, d = x.shape
     h = cfg.cell_dim
     cdt, f32 = cfg.compute_dtype, torch.float32
@@ -160,19 +167,23 @@ def _dropout_scan(
     w_m = p["w_gifo_m"].reshape(h, 4 * h).to(cdt).to(f32)
     ph_i, ph_f, ph_o = p["phole_i_c"], p["phole_f_c"], p["phole_o_c"]
     rnndrop = cfg.recurrent_dropout_mode == "rnndrop"
-    c = m_carry = torch.zeros((b, h), dtype=f32, device=x.device)
+    if carry_in is None:
+        c = m_carry = torch.zeros((b, h), dtype=f32, device=x.device)
+    else:
+        c, m_carry = (v.to(f32) for v in carry_in)
     ms = []
     for t in range(t_max):
-        rd = rec_drop_mask[t if rec_drop_mask.shape[0] > 1 else 0]
+        rd = None if rec_drop_mask is None else rec_drop_mask[
+            t if rec_drop_mask.shape[0] > 1 else 0]
         gifo = xw[t] + torch.matmul(m_carry.to(cdt).to(f32), w_m)
         g = torch.tanh(gifo[:, 0 * h:1 * h])
         i = torch.sigmoid(gifo[:, 1 * h:2 * h] + c * ph_i)
         f = torch.sigmoid(gifo[:, 2 * h:3 * h] + c * ph_f)
         cand = i * g
-        if not rnndrop:
+        if rd is not None and not rnndrop:
             cand = cand * rd
         c_new = f * c + cand
-        if rnndrop:
+        if rd is not None and rnndrop:
             c_new = c_new * rd
         o = torch.sigmoid(gifo[:, 3 * h:4 * h] + c_new * ph_o)
         mt = mask[t][:, None]
@@ -180,24 +191,31 @@ def _dropout_scan(
         c = c_new * mt + c * (1.0 - mt)
         m_carry = m + m_carry * (1.0 - mt)
         ms.append(m)
-    if not ms:
-        return torch.zeros_like(xw[..., :h])
-    return torch.stack(ms)
+    ms = torch.stack(ms) if ms else torch.zeros_like(xw[..., :h])
+    if return_carry:
+        return ms, (c, m_carry)
+    return ms
 
 
 def _direction_scan(
     p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: BiLstmConfig,
     rec_drop_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    carry_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    return_carry: bool = False,
+):
     """One direction's recurrence, time-major: x [T, B, D] (already
     time-flipped for the backward direction), mask [T, B] float 0/1,
     rec_drop_mask [T or 1, B, H] or None; returns m [T, B, H] (f32, or
     bf16 from the fused kernel under state_bf16), zero at padded steps.
-    The route is chosen as the module docstring says.  The weights go in
-    as float32: the wrappers cast them to the compute dtype, and their
-    gradients stay float32."""
-    if rec_drop_mask is not None:
-        return _dropout_scan(p, x, mask, cfg, rec_drop_mask)
+    `carry_in` (c, m) [B, H] starts the state there and `return_carry`
+    also returns the final (c, m): such a call, like one with a dropout
+    mask, runs `_plain_scan` (module docstring).  Otherwise the route is
+    chosen as the module docstring says.  The weights go in as float32:
+    the wrappers cast them to the compute dtype, and their gradients stay
+    float32."""
+    if rec_drop_mask is not None or carry_in is not None or return_carry:
+        return _plain_scan(p, x, mask, cfg, rec_drop_mask, carry_in,
+                           return_carry)
     t_max, b, d = x.shape
     h = cfg.cell_dim
     if x.is_cuda and lstm_cuda.fused_launch(b, d, h) is None:

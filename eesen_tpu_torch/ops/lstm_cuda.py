@@ -43,9 +43,9 @@ the same question of the TPU's VMEM; speed plays no part in the choice.
 A direct call of these wrappers on a shape `fused_launch` refuses raises.
 Dropout is ported: forward dropout alone keeps this route (the mask
 multiplies the layer output); a direction with a recurrent-dropout mask
-runs neither this route nor the v1 one, but the torch-op recurrence
-`_dropout_scan` of models/bilstm.py, as the JAX package runs its XLA scan
-then.
+or a carried streaming state runs neither this route nor the v1 one, but
+the torch-op recurrence `_plain_scan` of models/bilstm.py, as the JAX
+package runs its XLA scan then.
 """
 
 from __future__ import annotations

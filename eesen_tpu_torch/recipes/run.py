@@ -9,8 +9,12 @@ best paths (counterpart of the decode stage of eesen_tpu/recipes/run.py,
 
 Everything runs on `device` ("cuda" unless the caller asks for "cpu"):
 the BiLSTM stack through the fused LSTM kernel, the search through the
-recombination kernel.  Blank-skip, training, features and WER scoring are
-not part of this module yet.
+recombination kernel.  With `BeamSearchConfig(blank_skip=0.98)`, as every
+recipe decodes, blank-dominated runs of the prior-divided posteriors are
+merged first (decoder/frame_skip.py) and the search runs on the compacted
+frames.  Streaming is models/streaming.py; greedy decoding
+decoder/greedy.py.  Training is training/trainer.py; features and WER
+scoring are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from eesen_tpu_torch.decoder.beam import (
     BeamOutputs, BeamSearchConfig, DeviceGraph, make_beam_decoder, traceback,
 )
+from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
 from eesen_tpu_torch.decoder.graph_compile import CompiledGraph
 from eesen_tpu_torch.models.model import (
     AcousticModelConfig, apply_model, as_tensor, check_device,
@@ -80,9 +85,12 @@ def run_search(
     device="cuda",
 ) -> Iterator[Tuple[List[str], torch.Tensor, np.ndarray, BeamOutputs]]:
     """Batched beam search over the utterances of `feats`, longest first;
-    yields (chunk keys, log-posteriors, lengths, BeamOutputs).  A chunk
-    whose per-frame word buffer overflowed is decoded once more with
-    doubled max_olabels."""
+    yields (chunk keys, log-posteriors, lengths, BeamOutputs).  With
+    cfg.blank_skip > 0 the prior-divided log-posteriors are compacted
+    first (decoder/frame_skip.py, bucket cfg.blank_skip_bucket), and the
+    yielded lp and lengths are the compacted ones the search saw.  A
+    chunk whose per-frame word buffer overflowed is decoded once more
+    with doubled max_olabels."""
     device = check_device(device)
     decoder = make_beam_decoder(graph, cfg)
     dg = DeviceGraph.put(graph, device=device)
@@ -91,6 +99,11 @@ def run_search(
         chunk = keys[i : i + batch_size]
         arr, lens = _pad_chunk(feats, chunk, time_bucket, batch_size)
         lp = posteriors(params, model_cfg, arr, lens, log_priors, device)
+        if cfg.blank_skip > 0.0:
+            cf = compact_blank_frames(lp, lens, cfg.blank_skip,
+                                      bucket=cfg.blank_skip_bucket)
+            lp = cf.loglikes
+            lens = cf.lengths.cpu().numpy()
         out = decoder(lp, lens, dg)
         n_over = int(out.overflow.sum())
         if n_over > 0:

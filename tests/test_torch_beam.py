@@ -146,9 +146,21 @@ def test_outputs_convert_to_numpy(tlg):
     ("arc_budget_x", 64),
 ])
 def test_unported_settings_raise(tlg, field, value):
+    """Settings not ported raise.  blank_skip is ported: the
+    decoder takes it and, as the JAX package's, ignores it (the callers
+    compact), so its search equals the one without it."""
     g = to_port_graph(compile_graph(tlg[1], max_degree=4))
+    cfg = tbeam.BeamSearchConfig(**{field: value})
+    if field == "blank_skip":
+        ll, lens = batch(tlg[0])
+        dg = tbeam.DeviceGraph.put(g, device="cpu")
+        got = tbeam.make_beam_decoder(g, cfg)(ll, lens, dg)
+        want = tbeam.make_beam_decoder(g)(ll, lens, dg)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
     with pytest.raises(NotImplementedError):
-        tbeam.make_beam_decoder(g, tbeam.BeamSearchConfig(**{field: value}))
+        tbeam.make_beam_decoder(g, cfg)
 
 
 def test_hub_graphs_raise(tlg):

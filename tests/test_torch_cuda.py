@@ -17,6 +17,7 @@ from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder.arpa import arpa_to_fst
 from eesen_tpu_torch.decoder.ctc_graph import build_lg, build_tlg, compile_lang
 from eesen_tpu_torch.decoder.graph_compile import compile_graph
+from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
 from eesen_tpu_torch.models import bilstm as tbilstm
 from eesen_tpu_torch.ops import (
     beam_cuda, build, ctc_cuda, lstm_cuda, lstm_v1_cuda,
@@ -809,7 +810,7 @@ def test_dedup_kernel_refuses_wide_rows(dev):
         beam_cuda.dedup_prune(z.int(), z, 8, 1.0)
 
 
-def test_decoder_on_card_matches_cpu(dev):
+def small_graph():
     scfg = SynthConfig(num_phones=5, num_words=20)
     rng = np.random.default_rng(1)
     lex = make_lexicon(scfg, rng)
@@ -821,6 +822,11 @@ def test_decoder_on_card_matches_cpu(dev):
         lang.l_fst, arpa_to_fst(estimate_bigram_arpa(sents, vocab=vocab),
                                 lang.words))), max_degree=4,
         build_closure=True)
+    return g, rng
+
+
+def test_decoder_on_card_matches_cpu(dev):
+    g, rng = small_graph()
     ll = rng.standard_normal((3, 20, 6)).astype(np.float32) * 3.0
     ll -= np.log(np.exp(ll).sum(-1, keepdims=True))
     lens = np.array([20, 15, 9])
@@ -835,3 +841,94 @@ def test_decoder_on_card_matches_cpu(dev):
     for (w_d, c_d), (w_c, c_c) in zip(res_d, res_c):
         assert w_d == w_c
         np.testing.assert_allclose(c_d, c_c, rtol=1e-5)
+
+
+def blank_runs(rng, b, t, v):
+    """Spikes between blank runs of 1-8 frames, log-normalized."""
+    ll = rng.standard_normal((b, t, v)).astype(np.float32) * 0.4
+    for i in range(b):
+        pos = 0
+        while pos < t:
+            ll[i, pos, int(rng.integers(1, v))] += 7.0
+            run = int(rng.integers(1, 9))
+            ll[i, pos + 1:pos + 1 + run, 0] += 12.0
+            pos += 1 + run
+    return ll - np.log(np.exp(ll).sum(-1, keepdims=True))
+
+
+@pytest.mark.parametrize("min_run", [1, 3])
+def test_compaction_on_card_matches_cpu(dev, min_run):
+    """Kept counts, bucket and time_map exact; the merged columns within
+    1e-3 (cumsum differences of ~10^3 at T=512, another summation order)."""
+    rng = np.random.default_rng(min_run)
+    ll = blank_runs(rng, 8, 512, 72)
+    lens = np.array([512, 497, 463, 430, 388, 341, 290, 0])
+    got = compact_blank_frames(torch.from_numpy(ll).to(dev), lens, 0.98,
+                               min_run=min_run)
+    want = compact_blank_frames(ll, lens, 0.98, min_run=min_run)
+    assert got.loglikes.is_cuda
+    assert torch.equal(got.lengths.cpu(), want.lengths)
+    assert got.loglikes.shape == want.loglikes.shape
+    for i, n in enumerate(want.lengths.tolist()):
+        assert torch.equal(got.time_map[i, :n].cpu(), want.time_map[i, :n])
+        torch.testing.assert_close(got.loglikes[i, :n].cpu(),
+                                   want.loglikes[i, :n], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("blank_skip", [0.0, 0.9])
+def test_streaming_decoder_on_card_matches_one_shot(dev, blank_skip):
+    """StreamingBeamDecoder over 7-frame chunks on the card, kernel 2
+    launched: without blank-skip the one-shot decode's words and costs
+    (the same frame step, so 1e-5 relative); with it (per-chunk
+    compaction) the same chunks streamed on the CPU."""
+    g, rng = small_graph()
+    ll = blank_runs(rng, 3, 30, 6)
+    lens = np.array([30, 22, 9])
+    cfg = tbeam.BeamSearchConfig(beam=12.0, max_active=32,
+                                 blank_skip=blank_skip, blank_skip_bucket=1)
+    act = np.arange(30)[None, :] < lens[:, None]
+
+    def stream(device):
+        dec = tbeam.StreamingBeamDecoder(g, cfg, device=device)
+        st = dec.start(3)
+        for t0 in range(0, 30, 7):
+            st = dec.accept(st, ll[:, t0:t0 + 7], act[:, t0:t0 + 7])
+        return st["tframes"], dec.finish(st)
+
+    before = beam_cuda.launches
+    frames, res = stream(dev)
+    assert beam_cuda.launches > before
+    if blank_skip:
+        want_frames, want = stream("cpu")
+        assert frames == want_frames < 30
+    else:
+        dg = tbeam.DeviceGraph.put(g, device=dev)
+        want = tbeam.traceback(tbeam.make_beam_decoder(g, cfg)(ll, lens, dg),
+                               lens, g.final_weight)
+    for (w, c), (w_r, c_r) in zip(res, want):
+        assert w == w_r
+        np.testing.assert_allclose(c, c_r, rtol=1e-5)
+
+
+def test_carried_scan_on_card_launches_no_kernel(dev):
+    """A carried call runs the torch-op scan on the card: no LSTM kernel,
+    and the CPU's values (f32 compute: 1e-5)."""
+    cfg = tbilstm.BiLstmConfig(input_dim=24, cell_dim=32,
+                               bidirectional=False,
+                               compute_dtype=torch.float32)
+    p = tbilstm.init_bilstm_layer(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")["fw"]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((13, 3, 24)).astype(np.float32))
+    mask = (torch.arange(13)[:, None] < torch.tensor([13, 9, 0])).float()
+    carry = (torch.full((3, 32), 0.1), torch.full((3, 32), -0.2))
+    before = (lstm_cuda.launches, lstm_v1_cuda.launches)
+    m_d, (c_d, mc_d) = tbilstm._direction_scan(
+        {k: v.to(dev) for k, v in p.items()}, x.to(dev), mask.to(dev), cfg,
+        carry_in=tuple(v.to(dev) for v in carry), return_carry=True)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.launches, lstm_v1_cuda.launches) == before
+    m_c, (c_c, mc_c) = tbilstm._direction_scan(
+        p, x, mask, cfg, carry_in=carry, return_carry=True)
+    for got, want in ((m_d, m_c), (c_d, c_c), (mc_d, mc_c)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -4,6 +4,7 @@ unless the caller asks for the CPU; kernel wrappers refuse devices they
 have no kernel for."""
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder import graph_compile as t_gc
 from eesen_tpu_torch.models import model as tmodel
+from eesen_tpu_torch.models import streaming as tstream
 from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
 from eesen_tpu_torch.recipes import run as trun
 from eesen_tpu_torch.training import optim as toptim
@@ -70,11 +72,14 @@ def tiny_graph():
 @pytest.mark.parametrize("entry", [
     "init_model", "params_from_jax", "device_graph", "posteriors",
     "decode", "create_train_state", "trainer", "opt_state_from_jax",
+    "stream_state", "streaming_am", "streaming_decoder",
+    "streaming_pipeline",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry):
     cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
                                      num_targets=3)
     params = tmodel.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    ucfg = dataclasses.replace(cfg, bidirectional=False)
     calls = {
         "init_model": lambda: tmodel.init_model(torch.Generator(), cfg),
         "params_from_jax": lambda: tmodel.params_from_jax(
@@ -91,6 +96,12 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
         "opt_state_from_jax": lambda: toptim.opt_state_from_jax(
             type("S", (), {"inner": (), "hyperparams": {
                 "learning_rate": 0.0}})()),
+        "stream_state": lambda: tstream.init_stream_state(ucfg, 2),
+        "streaming_am": lambda: tstream.StreamingAcousticModel(params, ucfg),
+        "streaming_decoder": lambda: tbeam.StreamingBeamDecoder(
+            tiny_graph()),
+        "streaming_pipeline": lambda: tstream.StreamingPipeline(
+            params, ucfg, tiny_graph()),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
