@@ -52,6 +52,41 @@ Phases, one JSON line each:
           AM step's, accept's, partial's and the pipeline's ms (host
           clock, synchronized), the real-time factor (pipeline ms /
           160 ms) and kernel 2's launches.
+  frontend audio in on the card: 64 utterances of the seeded synthetic
+          corpus (recipes/synth_corpus, 40 phones, 4-10 words) padded to
+          one power-of-two bucket: (i) fbank at the wsj_phn options (40
+          bins, no dither) on all 64 and at the 9 augmentation views
+          (frame shift 8/10/11 ms x VTLN warp 0.8/1.0/1.2) on 8, card
+          against CPU within FE_TOL where the mel power is above
+          FE_MEL_FLOOR; (ii) FeaturePipeline (per-speaker CMVN) at both
+          recipe configurations (deltas, 120-d; splice + subsample x3,
+          360-d) on each side's fbank: card within PIPE_ATOL of CPU, the
+          static dims' per-speaker means within CMVN_MEAN_ATOL of 0;
+          (iii) mfcc, plp and resample card against CPU; (iv)
+          kaldi_pitch on the card against tests/data/pitch_golden at
+          tests/test_pitch.py's per-case tolerances; (v) fbank audio-s
+          per second over the batch of 64 on the card (events) and the
+          CPU (host clock), and kaldi_pitch ms per audio-second on 10 s
+          (a loop over frames).
+  recipe  audio in, words out: RecipeRun(RECIPES["wsj_phn"], device=
+          "cuda") (4 x 320, 120-d input, 41 targets from the corpus's 40
+          phones; the newbob schedule cut to RECIPE_MAX_ITERS epochs) on
+          the corpus split 48 / 8 / 8: (i) compute_features with dither
+          (finite, 120-d, CMVN means near 0), and without dither card
+          against CPU (raw fbank within FE_TOL above the floor, pipeline
+          features within PIPE_ATOL); (ii) train with counters zeroed just
+          before and read just after: per train step 8 lstm_fwd, 8
+          lstm_bwd, 1 ctc_alpha, 1 ctc_beta, per CV step 8 lstm_fwd and 1
+          + 1 CTC; finite objectives; (iii) build_graph (a bigram of the
+          training texts over the 300-word lexicon) and decode of the
+          test set at the recipe's settings (beam 17, max_active 5000,
+          blank-skip 0.98): finite costs, overflow 0, 8 lstm_fwd a decoder
+          call, kernel 2's launches as kernel2_launches predicts them
+          from the merge widths, the WER and ms per frame; (iv) the same
+          parameters on the CPU decode the RECIPE_CPU_UTTS shortest test
+          utterances: the card's words, costs within COST_RTOL; (v)
+          check_blank_skip_parity on the card, its verdict recorded;
+          (vi) wall seconds of each stage.
   lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
           mixed lengths with a length-0 row, state_bf16 on and off): first
           kernel lstm_fwd with residuals vs its plain version (m and c at
@@ -2161,12 +2196,453 @@ def phase_profile(dev, graphs, state):
     }
 
 
+# ---------------------------------------------------------------------------
+# the front end and the recipe driver: audio in, words out
+# ---------------------------------------------------------------------------
+
+# card vs CPU at the JAX package's numpy-oracle tolerance
+# (tests/test_features.py:79), where the mel power is above FE_MEL_FLOOR:
+# below it the log holds FFT rounding, cuFFT's against pocketfft's
+FE_TOL, FE_MEL_FLOOR = 1e-3, 1.0
+# pipeline features card vs CPU: per-speaker CMVN (var = E[x^2] - mean^2
+# in float32 on log-mel near 20) multiplies raw differences by up to ~75
+# (the CPU tests' corpus: 1e-5 -> 7.5e-4)
+PIPE_ATOL = 1e-2
+CMVN_MEAN_ATOL = 1e-3
+# tests/test_pitch.py:37-47 (speechish: near-tie lags one grid step off)
+PITCH_CASES = {"tone220": (1e-4, 1e-4), "vibrato": (1e-4, 1e-4),
+               "noise": (1e-4, 1e-4), "speechish": (6e-3, 2e-3),
+               "tone_8k": (1e-4, 1e-4)}
+# the recipe corpus (recipes/synth_corpus.py: 40 phones, 4-10 words an
+# utterance, 20 speakers), cut to 48 train / 8 CV / 8 test utterances of
+# a 300-word lexicon, and the recipe's newbob cut to RECIPE_MAX_ITERS
+RECIPE_WORDS, RECIPE_SPLIT, RECIPE_MAX_ITERS = 300, (48, 8, 8), 2
+RECIPE_CPU_UTTS = 4
+PITCH_TIMING_S = 10.0
+
+
+def recipe_corpus():
+    """Waves (float32, int16 range, 16 kHz), texts, speakers, lexicon and
+    units of the seeded synthetic corpus, and its train/cv/test keys."""
+    from eesen_tpu_torch.recipes.synth_corpus import (
+        SynthConfig, generate_corpus, make_lexicon, make_phones,
+    )
+
+    scfg = SynthConfig(num_words=RECIPE_WORDS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    phones = make_phones(scfg, rng)
+    lex = make_lexicon(scfg, rng)
+    waves, text, utt2spk = generate_corpus(scfg, sum(RECIPE_SPLIT), 1, lex,
+                                           phones)
+    keys = [sorted(waves)[i] for i in rng.permutation(len(waves))]
+    a, b, _ = RECIPE_SPLIT
+    return {"waves": waves, "text": text, "utt2spk": utt2spk, "lex": lex,
+            "units": [f"p{i:02d}" for i in range(scfg.num_phones)],
+            "split": {"train": sorted(keys[:a]), "cv": sorted(keys[a:a + b]),
+                      "test": sorted(keys[a + b:])}}
+
+
+def padded_waves(waves):
+    """The waves zero-padded to one power-of-two length (the rule of
+    RecipeRun._raw_fbank), sorted by key: [N, bucket] float32."""
+    keys = sorted(waves)
+    max_n = max(len(w) for w in waves.values())
+    bucket = 1 << max(int(np.ceil(np.log2(max(max_n, 1024)))), 10)
+    wp = np.zeros((len(keys), bucket), np.float32)
+    for j, k in enumerate(keys):
+        wp[j, : len(waves[k])] = waves[k]
+    return wp
+
+
+def phase_frontend(dev, state):
+    import dataclasses
+
+    import torch
+    from eesen_tpu_torch.frontend import features as tf
+    from eesen_tpu_torch.frontend import mfcc as tm
+    from eesen_tpu_torch.frontend import pitch as tp
+    from eesen_tpu_torch.frontend import plp as tplp
+    from eesen_tpu_torch.frontend import resample as trs
+    from eesen_tpu_torch.frontend.pipeline import (
+        FeaturePipeline, speaker_cmvn_stats,
+    )
+    from eesen_tpu_torch.recipes.augment import librispeech_tags
+    from eesen_tpu_torch.recipes.config import RECIPES
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the front end's products need f32")
+    corpus = state["corpus"] = recipe_corpus()
+    waves = corpus["waves"]
+    keys = sorted(waves)
+    w_cpu = torch.from_numpy(padded_waves(waves))          # [64, bucket]
+    w_dev = w_cpu.to(dev)
+    lens = [len(waves[k]) for k in keys]
+    base = RECIPES["wsj_phn"].fbank
+    out = {"utterances": len(keys), "bucket_samples": w_cpu.shape[1],
+           "audio_s": sum(lens) / 16000.0}
+
+    def view(shift):
+        return dataclasses.replace(base, frame_opts=dataclasses.replace(
+            base.frame_opts, dither=0.0, frame_shift_ms=shift))
+
+    # (i) fbank, card vs CPU: the whole batch at the recipe's options, 8
+    # utterances at each augmentation view
+    views = {}
+    for tag in librispeech_tags():
+        opts = view(tag.frame_shift_ms)
+        sub = slice(None) if tag.name == "10_1" else slice(0, 8)
+        got = tf.fbank(w_dev[sub], opts, vtln_warp=tag.vtln_warp)
+        want = tf.fbank(w_cpu[sub], opts, vtln_warp=tag.vtln_warp)
+        mask = want > np.log(FE_MEL_FLOOR)
+        views[tag.name] = {
+            "max_abs_err": _close(f"fbank {tag.name}", got.cpu()[mask],
+                                  want[mask], FE_TOL, FE_TOL),
+            "compared_share": float(mask.float().mean())}
+        if tag.name == "10_1":
+            fb_dev, fb_cpu = got.cpu().numpy(), want.numpy()
+    out["fbank"] = views
+    # (ii) the pipeline at both recipe configurations on each side's raw
+    nf = [tf.num_frames(n, base.frame_opts) for n in lens]
+    pipes = {}
+    for recipe, dim in (("wsj_phn", 120), ("tedlium_phn_30ms", 360)):
+        feats = {}
+        for side, fb in (("card", fb_dev), ("cpu", fb_cpu)):
+            raw = {k: fb[j, :nf[j]] for j, k in enumerate(keys)}
+            cmvn = speaker_cmvn_stats(raw, corpus["utt2spk"])
+            pipe = FeaturePipeline(RECIPES[recipe].pipeline, cmvn,
+                                   corpus["utt2spk"])
+            feats[side] = {k: pipe(k, v) for k, v in raw.items()}
+        err = 0.0
+        for k in keys:
+            a, b = feats["card"][k], feats["cpu"][k]
+            if a.shape[1] != dim or not np.all(np.isfinite(a)):
+                raise AssertionError(f"{recipe} {k}: {a.shape}")
+            err = max(err, float(np.abs(a - b).max()))
+        if not err <= PIPE_ATOL:
+            raise AssertionError(f"{recipe} pipeline card vs CPU {err}")
+        mean = 0.0
+        if recipe == "wsj_phn":       # CMVN: static dims of each speaker
+            for spk in set(corpus["utt2spk"].values()):
+                x = np.concatenate([feats["card"][k][:, :40] for k in keys
+                                    if corpus["utt2spk"][k] == spk])
+                mean = max(mean, float(np.abs(x.mean(0)).max()))
+            if not mean <= CMVN_MEAN_ATOL:
+                raise AssertionError(f"CMVN means {mean}")
+        pipes[recipe] = {"dim": dim, "max_abs_err": err,
+                         "cmvn_mean_max": mean}
+    out["pipeline"] = pipes
+    # (iii) mfcc, plp, resample on 8 utterances, card vs CPU (frames whose
+    # every mel bin is above the floor)
+    w8, d8 = w_cpu[:8], w_dev[:8]
+    mopts = tm.MfccOptions(frame_opts=tf.FrameOptions(dither=0.0))
+    popts = tplp.PlpOptions(frame_opts=tf.FrameOptions(dither=0.0))
+    power = tf.mel_energies(tf.frame_signal(w8, mopts.frame_opts),
+                            mopts.mel_opts, mopts.frame_opts)
+    fmask = (power > FE_MEL_FLOOR).all(-1)
+    want = tm.mfcc(w8, mopts)
+    out["mfcc"] = {"max_abs_err": _close(
+        "mfcc", tm.mfcc(d8, mopts).cpu()[fmask], want[fmask], FE_TOL,
+        FE_TOL * 23), "compared_share": float(fmask.float().mean())}
+    out["plp"] = {"max_abs_err": _close(
+        "plp", tplp.plp(d8, popts).cpu()[fmask],
+        tplp.plp(w8, popts)[fmask], FE_TOL, FE_TOL)}
+    rs = {}
+    for fi, fo in ((16000, 8000), (16000, 22050)):
+        want = trs.resample(w8, fi, fo)
+        rs[f"{fi}_{fo}"] = _close(f"resample {fi}->{fo}",
+                                  trs.resample(d8, fi, fo).cpu(), want,
+                                  FE_TOL, FE_TOL * float(want.abs().max()))
+    out["resample_max_abs_err"] = rs
+    # (iv) kaldi_pitch on the card against the reference's goldens
+    data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests", "data", "pitch_golden",
+                                "golden.npz"))
+    golden = {}
+    for name, (tol_pitch, tol_nccf) in PITCH_CASES.items():
+        got = tp.kaldi_pitch(torch.from_numpy(data[f"{name}_wave"]).to(dev),
+                             tp.PitchOptions(samp_freq=float(
+                                 data[f"{name}_sr"]))).cpu().numpy()
+        gold = data[f"{name}_raw"]
+        if got.shape != gold.shape:
+            raise AssertionError(f"pitch {name}: {got.shape} {gold.shape}")
+        rel = float((np.abs(got[:, 1] - gold[:, 1]) / gold[:, 1]).max())
+        dn = float(np.abs(got[:, 0] - gold[:, 0]).max())
+        if not (rel <= tol_pitch and dn <= tol_nccf):
+            raise AssertionError(f"pitch {name}: pitch {rel}, nccf {dn}")
+        golden[name] = {"pitch_rel_err": rel, "nccf_abs_err": dn,
+                        "tol": [tol_pitch, tol_nccf]}
+    out["pitch_golden"] = golden
+    # (v) times: fbank over the batch of 64 (card: events; CPU: host
+    # clock), pitch over PITCH_TIMING_S of joined utterances (host clock,
+    # synchronized: a loop over frames)
+    opts = view(10.0)
+    card_ms = _cuda_ms(lambda: tf.fbank(w_dev, opts), 5)
+    cpu_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tf.fbank(w_cpu, opts)
+        cpu_ms.append((time.perf_counter() - t0) * 1e3)
+    cpu_ms = statistics.median(cpu_ms)
+    padded_s = w_cpu.numel() / 16000.0
+    long = np.concatenate([waves[k] for k in keys])[
+        : int(PITCH_TIMING_S * 16000)]
+    long_dev = torch.from_numpy(long).to(dev)
+    p_card_ms, p_card = _wall_ms(lambda: tp.kaldi_pitch(long_dev), 3)
+    t0 = time.perf_counter()
+    p_cpu = tp.kaldi_pitch(torch.from_numpy(long))
+    p_cpu_ms = (time.perf_counter() - t0) * 1e3
+    out["timing"] = {
+        "fbank_batch": list(w_cpu.shape), "fbank_card_ms": card_ms,
+        "fbank_cpu_ms": cpu_ms,
+        "fbank_card_audio_s_per_s": out["audio_s"] / card_ms * 1e3,
+        "fbank_cpu_audio_s_per_s": out["audio_s"] / cpu_ms * 1e3,
+        "fbank_card_padded_audio_s_per_s": padded_s / card_ms * 1e3,
+        "pitch_audio_s": len(long) / 16000.0, "pitch_frames": len(p_cpu),
+        "pitch_card_ms": p_card_ms, "pitch_cpu_ms": p_cpu_ms,
+        "pitch_card_ms_per_audio_s": p_card_ms / (len(long) / 16000.0),
+        "pitch_cpu_ms_per_audio_s": p_cpu_ms / (len(long) / 16000.0),
+        "pitch_card_vs_cpu_same_lags": float(
+            (p_card.cpu()[:, 1] == p_cpu[:, 1]).float().mean()),
+    }
+    return out
+
+
+def merge_widths(graph, k: int):
+    """(emit, closure) merge widths of one search frame on the card, by
+    decoder/beam.make_beam_decoder's rule: K x the emit row width, and
+    K + K x the closure (or eps) row width."""
+    from eesen_tpu_torch.decoder.beam import use_dense_rows
+
+    if use_dense_rows(graph):
+        emit, x = graph.dense_rows()
+        d_e, d_x = emit.shape[1], x.shape[1]
+    else:
+        d_e = max(graph.max_emit_degree, 1)
+        d_x = max(graph.max_closure_degree if graph.has_closure
+                  else graph.max_eps_degree, 1)
+    return k * d_e, k + k * d_x
+
+
+def kernel2_launches(graph, k: int, frames_per_call) -> int:
+    """Kernel 2's launches over decoder calls of the given frame counts:
+    one per merge whose padded width fits beam_cuda.MAX_LANES (one
+    closure merge to start, then an emit and a closure merge a frame)."""
+    from eesen_tpu_torch.ops import beam_cuda
+
+    fits = [beam_cuda.padded_width(m) <= beam_cuda.MAX_LANES
+            for m in merge_widths(graph, k)]
+    return sum(fits[1] + t * (fits[0] + fits[1]) for t in frames_per_call)
+
+
+def _recording(run):
+    """Wrap run._run_search so that the chunks it yields are kept."""
+    seen, search = [], run._run_search
+
+    def wrapped(*args, **kwargs):
+        for item in search(*args, **kwargs):
+            seen.append(item)
+            yield item
+
+    run._run_search = wrapped
+    return seen
+
+
+def _best_paths(run, seen):
+    from eesen_tpu_torch.decoder.beam import traceback
+
+    res, overflow = {}, 0
+    for chunk, _, lens, out in seen:
+        overflow += int(out.overflow.sum())
+        for key, r in zip(chunk, traceback(out, lens,
+                                           run.graph.final_weight)):
+            res[key] = r
+    return res, overflow
+
+
+def phase_recipe(dev, state):
+    import dataclasses
+    import shutil
+
+    from eesen_tpu_torch.recipes.config import RECIPES
+
+    corpus = state.get("corpus") or recipe_corpus()
+    base = RECIPES["wsj_phn"]
+    cfg = dataclasses.replace(base, newbob=dataclasses.replace(
+        base.newbob, max_iters=RECIPE_MAX_ITERS))
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tmp",
+                        "chip_smoke_recipe")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return _recipe(dev, state, corpus, cfg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _recipe(dev, state, corpus, cfg, work):
+    """The recipe phase in `work` (removed by phase_recipe)."""
+    import torch
+    from eesen_tpu_torch.io.datadir import DataDir
+    from eesen_tpu_torch.recipes.lm import estimate_bigram_arpa
+    from eesen_tpu_torch.recipes.run import RecipeRun
+    from eesen_tpu_torch.training.batching import Utterance, make_batches
+    from eesen_tpu_torch.training.optim import tree_leaves, tree_unflatten
+
+    split, text = corpus["split"], corpus["text"]
+    stages = {}
+
+    def sync():
+        torch.cuda.synchronize()
+
+    run = RecipeRun(cfg, os.path.join(work, "card"), corpus["lex"],
+                    corpus["units"], device=dev)
+    cpu = RecipeRun(cfg, os.path.join(work, "cpu"), corpus["lex"],
+                    corpus["units"], device="cpu")
+    t0 = time.perf_counter()
+    run.build_lang()
+    data = DataDir.write(os.path.join(work, "data"), text=text,
+                         utt2spk=corpus["utt2spk"])
+    data.wav_scp = dict(corpus["waves"])
+    labels = run.prep_labels(data)
+    stages["lang_labels"] = time.perf_counter() - t0
+    # (i) features with dither on the card; without, card vs CPU
+    t0 = time.perf_counter()
+    feats = run.compute_features(data, dither_seed=0)
+    sync()
+    stages["features"] = time.perf_counter() - t0
+    dims = {v.shape[1] for v in feats.values()}
+    if dims != {120} or not all(np.all(np.isfinite(v))
+                                for v in feats.values()):
+        raise AssertionError(f"features: dims {dims} or not finite")
+    mean = 0.0
+    for spk in set(corpus["utt2spk"].values()):
+        x = np.concatenate([v[:, :40] for k, v in feats.items()
+                            if corpus["utt2spk"][k] == spk])
+        mean = max(mean, float(np.abs(x.mean(0)).max()))
+    if not mean <= CMVN_MEAN_ATOL:
+        raise AssertionError(f"CMVN means {mean}")
+    raw_err = 0.0
+    raw_card, raw_cpu = run._raw_fbank(data, None), cpu._raw_fbank(data, None)
+    for k, want in raw_cpu.items():
+        mask = want > np.log(FE_MEL_FLOOR)
+        raw_err = max(raw_err, _close(
+            f"raw fbank {k}", torch.from_numpy(raw_card[k][mask]),
+            torch.from_numpy(want[mask]), FE_TOL, FE_TOL))
+    f_card = run.compute_features(data, dither_seed=None)
+    f_cpu = cpu.compute_features(data, dither_seed=None)
+    pipe_err = max(float(np.abs(f_card[k] - f_cpu[k]).max()) for k in f_cpu)
+    if not pipe_err <= PIPE_ATOL:
+        raise AssertionError(f"features card vs CPU {pipe_err}")
+
+    def part(d, name):
+        return {k: d[k] for k in split[name]}
+
+    # (ii) train: launch counters zeroed just before, read just after
+    reset_counters()
+    t0 = time.perf_counter()
+    hist = run.train(part(feats, "train"), part(labels, "train"),
+                     part(feats, "cv"), part(labels, "cv"))
+    sync()
+    stages["train"] = time.perf_counter() - t0
+    train_launches = counters()
+    steps = int(run.trainer.state.step)
+    cv_utts = [Utterance(k, feats[k], labels[k]) for k in split["cv"]]
+    cv_steps = len(hist) * len(list(make_batches(cv_utts, cfg.batch)))
+    calls = steps + cv_steps
+    want = {"lstm_fwd": 8 * calls, "lstm_bwd": 8 * steps,
+            "lstm_scan_fwd": 0, "lstm_scan_bwd": 0, "ctc_alpha": calls,
+            "ctc_beta": calls, "dedup_prune": 0}
+    objs = [v for h in hist.values() for v in (h["train_obj"], h["cv_obj"])]
+    if train_launches != want or not np.all(np.isfinite(objs)) or not steps:
+        raise AssertionError(f"train launches {train_launches}, want {want}"
+                             f", objectives {objs}")
+    train_audio_s = sum(len(corpus["waves"][k]) for k in split["train"]) / (
+        16000.0) * len(hist)
+    # (iii) graph, then the test set's decode at the recipe's settings
+    t0 = time.perf_counter()
+    arpa = estimate_bigram_arpa([text[k] for k in split["train"]],
+                                vocab=[w for w, _ in corpus["lex"]])
+    run.build_graph(arpa)
+    stages["graph"] = time.perf_counter() - t0
+    test = part(feats, "test")
+    refs = {k: text[k] for k in split["test"]}
+    seen = _recording(run)
+    reset_counters()
+    t0 = time.perf_counter()
+    stats, hyps = run.decode(test, refs)
+    sync()
+    stages["decode"] = time.perf_counter() - t0
+    del run._run_search                  # the class's method again
+    decode_launches = {k: v for k, v in counters().items()
+                       if k in ("lstm_fwd", "dedup_prune")}
+    best, overflow = _best_paths(run, seen)
+    costs = [c for _, c in best.values()]
+    k = cfg.decode.max_active
+    predicted = kernel2_launches(run.graph, k, [lp.shape[1]
+                                                for _, lp, _, _ in seen])
+    widths = merge_widths(run.graph, k)
+    frames = sum(len(v) for v in test.values())
+    if overflow or not np.all(np.isfinite(costs)) or len(best) != len(test):
+        raise AssertionError(f"decode: overflow {overflow}, costs {costs}")
+    if decode_launches != {"lstm_fwd": 8 * len(seen),
+                           "dedup_prune": predicted}:
+        raise AssertionError(f"decode launches {decode_launches}, "
+                             f"predicted {predicted} kernel 2")
+    # (iv) the same parameters on the CPU decode the shortest utterances
+    cpu.lang, cpu.graph = run.lang, run.graph
+    cpu.params = tree_unflatten(run.params, [
+        p.cpu() for p in tree_leaves(run.params)])
+    cpu.model_cfg, cpu.log_priors = run.model_cfg, run.log_priors
+    few = sorted(test, key=lambda u: (len(test[u]), u))[:RECIPE_CPU_UTTS]
+    cpu_seen = _recording(cpu)
+    t0 = time.perf_counter()
+    cpu.decode({u: test[u] for u in few}, {u: refs[u] for u in few})
+    stages["cpu_decode"] = time.perf_counter() - t0
+    del cpu._run_search
+    cpu_best, _ = _best_paths(cpu, cpu_seen)
+    _results_equal("recipe decode card vs CPU", [best[u] for u in few],
+                   [cpu_best[u] for u in few], COST_RTOL)
+    # (v) the blank-skip guard on the card
+    t0 = time.perf_counter()
+    ok, info = run.check_blank_skip_parity(test)
+    sync()
+    stages["blank_skip_guard"] = time.perf_counter() - t0
+    state["recipe_launches"] = {"train": train_launches,
+                                "decode": decode_launches}
+    return {
+        "utterances": {s: len(v) for s, v in split.items()},
+        "audio_s": {s: sum(len(corpus["waves"][k]) for k in v) / 16000.0
+                    for s, v in split.items()},
+        "lexicon_words": len(corpus["lex"]), "units": len(corpus["units"]),
+        "features": {"dim": 120, "cmvn_mean_max": mean,
+                     "raw_card_vs_cpu_max_abs_err": raw_err,
+                     "card_vs_cpu_max_abs_err": pipe_err},
+        "train": {"epochs": len(hist), "steps": steps, "cv_steps": cv_steps,
+                  "history": hist, "launches": train_launches,
+                  "s_per_step_incl_cv": stages["train"] / calls,
+                  "audio_s_per_s": train_audio_s / stages["train"]},
+        "graph_states": run.graph.num_states,
+        "decode": {"frames": frames, "calls": len(seen),
+                   "searched_frames": [lp.shape[1] for _, lp, _, _ in seen],
+                   "ms_per_frame": stages["decode"] * 1e3 / frames,
+                   "merge_widths": list(widths),
+                   "kernel2_predicted": predicted,
+                   "launches": decode_launches, "overflow": overflow,
+                   "wer": stats.wer, "report": stats.report(),
+                   "words_per_utt": [len(hyps[u]) for u in sorted(hyps)]},
+        "cpu_check": {"utterances": few, "same_words": True,
+                      "cost_rtol": COST_RTOL},
+        "blank_skip_guard": {"ok": ok, **info},
+        "stage_seconds": stages,
+    }
+
+
 def kernels_report(state, timing):
     lt = timing["lstm_fwd"]["D640"]
     ltt = timing["lstm_fwd_train"]["D640"]
     dt = timing["dedup_prune"]["m14336"]
     bt = timing["lstm_bwd"]["D640"]
     tl = state["train_launches"]
+    rl = state["recipe_launches"]
     train_path = f"train ({TRAIN_STEPS} steps)"
     h640 = {k: timing[f"{k}_h640"] for k in ("lstm_fwd", "lstm_bwd")}
     scan = {k: timing[f"lstm_scan_{k}"] for k in ("fwd", "bwd")}
@@ -2178,6 +2654,7 @@ def kernels_report(state, timing):
          "wide_source": f"eesen_tpu_torch/csrc/lstm_scan_{k}.cu",
          "replaces": f"eesen_tpu/ops/lstm_pallas.py:{line}",
          "launches": state["v1_launches"][f"lstm_scan_{k}"],
+         "recipe_train_launches": rl["train"][f"lstm_scan_{k}"],
          "path": v1_path, "max_abs_err": err[LIBRI_H][k],
          **{f: scan[k]["H640"][f]
             for f in ("ms", "us_per_step", "thread_per_unit_ms", "plain_ms",
@@ -2194,6 +2671,7 @@ def kernels_report(state, timing):
          "replaces": f"eesen_tpu/ops/ctc_pallas.py:{line}",
          "launches": tl[f"ctc_{w}"], "path": train_path,
          "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
+         "recipe_train_launches": rl["train"][f"ctc_{w}"],
          "max_abs_err": state["ctc"]["max_abs_err"][w],
          **{k: timing[f"ctc_{w}"]["S201"][k]
             for k in ("ms", "us_per_step", "ms_back_to_back", "plan",
@@ -2228,6 +2706,8 @@ def kernels_report(state, timing):
              state["stream_launches"]["offline"]["lstm_fwd"],
          "libri_serve_launches": state["libri_serve_launches"]["lstm_fwd"],
          "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
+         "recipe_train_launches": rl["train"]["lstm_fwd"],
+         "recipe_decode_launches": rl["decode"]["lstm_fwd"],
          "h640": h640["lstm_fwd"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
@@ -2242,6 +2722,7 @@ def kernels_report(state, timing):
          "products_ms": bt["products_ms"], "clusters": bt["clusters"],
          "products": bt["products"],
          "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
+         "recipe_train_launches": rl["train"]["lstm_bwd"],
          "h640": h640["lstm_bwd"]},
         *scan_rows,
         *ctc,
@@ -2255,6 +2736,7 @@ def kernels_report(state, timing):
          "stream_launches": state["stream_launches"]["dedup_prune"],
          "pipeline_launches":
              state["stream_launches"]["pipeline"]["dedup_prune"],
+         "recipe_decode_launches": rl["decode"]["dedup_prune"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
          "plain_ms": dt["plain_ms"],
@@ -2309,6 +2791,8 @@ def run(dev) -> bool:
     phase("skip", phase_skip, dev, graphs, state)
     phase("stream", phase_stream, dev, graphs, state)
     if dev.type == "cuda":
+        phase("frontend", phase_frontend, dev, state)
+        phase("recipe", phase_recipe, dev, state)
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)
         phase("train", phase_train, dev, state)

@@ -932,3 +932,135 @@ def test_carried_scan_on_card_launches_no_kernel(dev):
         p, x, mask, cfg, carry_in=carry, return_carry=True)
     for got, want in ((m_d, m_c), (c_d, c_c), (mc_d, mc_c)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# the front end and the recipe driver: card against CPU at the JAX
+# package's numpy-oracle tolerance (tests/test_features.py:79), where the
+# mel power is above a floor (the log of near-silence is FFT rounding)
+FE_TOL, FE_MEL_FLOOR = 1e-3, 1.0
+
+
+def fe_waves(b=4, n=16000, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    return (rng.standard_normal((b, n)) * 300 + 3000 * np.sin(
+        2 * np.pi * rng.uniform(100, 3000, (b, 1)) * t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shift,warp", [(10.0, 1.0), (8.0, 0.8), (8.0, 1.2),
+                                        (11.0, 0.8), (11.0, 1.2)])
+def test_fbank_on_card_matches_cpu(dev, shift, warp):
+    """The wsj_phn fbank (40 bins, povey, no dither) and the augmentation
+    views' frame shifts and warps, batched, card against CPU; TF32 off."""
+    from eesen_tpu_torch.frontend import features as tf
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    opts = tf.FbankOptions(
+        frame_opts=tf.FrameOptions(dither=0.0, frame_shift_ms=shift),
+        mel_opts=tf.MelOptions(num_bins=40))
+    w = torch.from_numpy(fe_waves())
+    got = tf.fbank(w.to(dev), opts, vtln_warp=warp)
+    assert got.device.type == "cuda"
+    want = tf.fbank(w, opts, vtln_warp=warp)
+    power = tf.mel_energies(tf.frame_signal(w, opts.frame_opts),
+                            opts.mel_opts, opts.frame_opts, warp)
+    mask = power > FE_MEL_FLOOR
+    assert mask.float().mean() > 0.9
+    torch.testing.assert_close(got.cpu()[mask], want[mask], rtol=FE_TOL,
+                               atol=FE_TOL)
+
+
+@pytest.mark.parametrize("name,tol_pitch,tol_nccf", [
+    ("tone220", 1e-4, 1e-4), ("vibrato", 1e-4, 1e-4), ("noise", 1e-4, 1e-4),
+    ("speechish", 6e-3, 2e-3), ("tone_8k", 1e-4, 1e-4)])
+def test_pitch_on_card_matches_golden(dev, name, tol_pitch, tol_nccf):
+    """kaldi_pitch on the card against the reference extractor's goldens
+    at tests/test_pitch.py's per-case tolerances."""
+    import os
+
+    from eesen_tpu_torch.frontend import pitch as tp
+
+    data = np.load(os.path.join(os.path.dirname(__file__), "data",
+                                "pitch_golden", "golden.npz"))
+    wave = torch.from_numpy(data[f"{name}_wave"]).to(dev)
+    got = tp.kaldi_pitch(wave, tp.PitchOptions(
+        samp_freq=float(data[f"{name}_sr"])))
+    assert got.device.type == "cuda"
+    got, gold = got.cpu().numpy(), data[f"{name}_raw"]
+    assert got.shape == gold.shape
+    assert (np.abs(got[:, 1] - gold[:, 1]) / gold[:, 1]).max() <= tol_pitch
+    assert np.abs(got[:, 0] - gold[:, 0]).max() <= tol_nccf
+
+
+def test_recipe_decode_on_card_matches_cpu(dev, tmp_path):
+    """RecipeRun on a small synthetic corpus: features on the card
+    within FE_TOL of the CPU's (no dither), then the same parameters
+    decode on the card (kernels 1 and 2) and on the CPU: the same words,
+    costs within 1e-4 relative (f32 compute and f32 state: with
+    state_bf16 kernel 1 rounds m to bf16, which the CPU path never does,
+    and the costs move by ~1e-3)."""
+    import dataclasses
+
+    from eesen_tpu_torch.decoder.beam import BeamSearchConfig
+    from eesen_tpu_torch.io.datadir import DataDir
+    from eesen_tpu_torch.models.model import AcousticModelConfig, init_model
+    from eesen_tpu_torch.recipes import run as trun
+    from eesen_tpu_torch.recipes.config import RECIPES
+    from eesen_tpu_torch.recipes.synth_corpus import (
+        generate_corpus, make_phones,
+    )
+
+    scfg = SynthConfig(num_phones=8, num_words=30, num_speakers=3,
+                       min_utt_words=2, max_utt_words=4)
+    rng = np.random.default_rng(0)
+    phones = make_phones(scfg, rng)
+    lex = make_lexicon(scfg, rng)
+    waves, text, utt2spk = generate_corpus(scfg, 6, 1, lex, phones)
+    units = [f"p{i:02d}" for i in range(scfg.num_phones)]
+    data = DataDir.write(str(tmp_path / "data"), text=text, utt2spk=utt2spk)
+    data.wav_scp = waves
+    cfg = dataclasses.replace(
+        RECIPES["wsj_phn"],
+        model=AcousticModelConfig(input_dim=120, cell_dim=32, num_layers=2,
+                                  num_targets=-1,
+                                  compute_dtype=torch.float32,
+                                  state_bf16=False),
+        decode=BeamSearchConfig(beam=14.0, max_active=256,
+                                acoustic_scale=0.9, blank_skip=0.98))
+    runs = {d: trun.RecipeRun(cfg, str(tmp_path / d.type), lex, units,
+                              device=d)
+            for d in (dev, torch.device("cpu"))}
+    feats = {}
+    for d, run in runs.items():
+        run.build_lang()
+        feats[d.type] = run.compute_features(data, dither_seed=None)
+        run.build_graph(estimate_bigram_arpa(list(text.values())))
+    for k, v in feats["cpu"].items():
+        np.testing.assert_allclose(feats["cuda"][k], v, rtol=FE_TOL,
+                                   atol=FE_TOL)
+    mcfg = dataclasses.replace(cfg.model, num_targets=len(units) + 1)
+    params = init_model(torch.Generator().manual_seed(0), mcfg, "cpu")
+    params["out"]["w"] = params["out"]["w"] * 20.0
+    log_priors = np.full(len(units) + 1, -np.log(len(units) + 1), np.float32)
+    res = {}
+    for d, run in runs.items():
+        run.params = {"layers": [{k: {n: p.to(d) for n, p in v.items()}
+                                  for k, v in layer.items()}
+                                 for layer in params["layers"]],
+                      "out": {n: p.to(d) for n, p in params["out"].items()}}
+        run.model_cfg, run.log_priors = mcfg, log_priors
+        before = (lstm_cuda.launches, beam_cuda.launches)
+        out = {}
+        for chunk, _, lens, o in run._run_search(
+                feats["cpu"], sorted(feats["cpu"]), cfg.decode, 8):
+            for key, r in zip(chunk, tbeam.traceback(
+                    o, lens, run.graph.final_weight)):
+                out[key] = r
+        res[d.type] = out
+        if d.type == "cuda":
+            assert lstm_cuda.launches == before[0] + 4
+            assert beam_cuda.launches > before[1]
+    assert sum(len(w) for w, _ in res["cpu"].values()) > 0
+    for key, (words, cost) in res["cpu"].items():
+        assert res["cuda"][key][0] == words, key
+        np.testing.assert_allclose(res["cuda"][key][1], cost, rtol=1e-4)

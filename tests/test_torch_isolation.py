@@ -13,10 +13,13 @@ import torch
 
 from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.decoder import graph_compile as t_gc
+from eesen_tpu_torch.frontend import features as tfeat
+from eesen_tpu_torch.frontend import pitch as tpitch
 from eesen_tpu_torch.models import model as tmodel
 from eesen_tpu_torch.models import streaming as tstream
 from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
 from eesen_tpu_torch.recipes import run as trun
+from eesen_tpu_torch.recipes.config import RECIPES
 from eesen_tpu_torch.training import optim as toptim
 from eesen_tpu_torch.training import trainer as ttrainer
 
@@ -73,9 +76,9 @@ def tiny_graph():
     "init_model", "params_from_jax", "device_graph", "posteriors",
     "decode", "create_train_state", "trainer", "opt_state_from_jax",
     "stream_state", "streaming_am", "streaming_decoder",
-    "streaming_pipeline",
+    "streaming_pipeline", "recipe_run", "fbank", "kaldi_pitch",
 ])
-def test_entry_points_default_to_cuda(no_cuda, entry):
+def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
     cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
                                      num_targets=3)
     params = tmodel.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -102,6 +105,10 @@ def test_entry_points_default_to_cuda(no_cuda, entry):
             tiny_graph()),
         "streaming_pipeline": lambda: tstream.StreamingPipeline(
             params, ucfg, tiny_graph()),
+        "recipe_run": lambda: trun.RecipeRun(
+            RECIPES["wsj_phn"], str(tmp_path), [("a", ("x",))], ["x"]),
+        "fbank": lambda: tfeat.fbank(np.zeros(800, np.float32)),
+        "kaldi_pitch": lambda: tpitch.kaldi_pitch(np.zeros(800, np.float32)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
