@@ -86,7 +86,19 @@ Phases, one JSON line each:
           parameters on the CPU decode the RECIPE_CPU_UTTS shortest test
           utterances: the card's words, costs within COST_RTOL; (v)
           check_blank_skip_parity on the card, its verdict recorded;
-          (vi) wall seconds of each stage.
+          (vi) wall seconds of each stage; (vii) score_sweep over the
+          test set at the recipe's acwt_sweep with
+          counters zeroed just before and read just after: the guard's
+          two searches and the lattice search, 8 lstm_fwd a decoder call
+          and kernel 2 as kernel2_launches predicts; the swept WER at the
+          decode's acwt equals the decode's, and each utterance's lattice
+          best path there is the decode's words; per-acwt WER and the
+          seconds of the searches and of the host lattice work apart;
+          (viii) write_eesen_nnet of the trained parameters and
+          read_eesen_nnet onto the card: equal bits in every tensor and
+          bit-equal posteriors of the read-back model on one test chunk;
+          (ix) emit_nnet_proto -> parse_nnet_proto of every RECIPES model
+          and the trained one.
   lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
           mixed lengths with a length-0 row, state_bf16 on and off): first
           kernel lstm_fwd with residuals vs its plain version (m and c at
@@ -2606,8 +2618,18 @@ def _recipe(dev, state, corpus, cfg, work):
     ok, info = run.check_blank_skip_parity(test)
     sync()
     stages["blank_skip_guard"] = time.perf_counter() - t0
+    # (vii) score_sweep: the guard, one search and the host lattice work
+    sweep_res = _recipe_sweep(run, test, refs, stats, hyps)
+    stages["score_sweep"] = sweep_res["seconds"]["total"]
+    # (viii) the trained model through a Kaldi <Nnet> file and back
+    t0 = time.perf_counter()
+    nnet_res = _recipe_nnet(run, test, work, dev)
+    stages["nnet_roundtrip"] = time.perf_counter() - t0
+    # (ix) nnet.proto text of every recipe's model and back
+    proto_res = _recipe_protos(run)
     state["recipe_launches"] = {"train": train_launches,
-                                "decode": decode_launches}
+                                "decode": decode_launches,
+                                "lattices": sweep_res.pop("launches")}
     return {
         "utterances": {s: len(v) for s, v in split.items()},
         "audio_s": {s: sum(len(corpus["waves"][k]) for k in v) / 16000.0
@@ -2632,8 +2654,169 @@ def _recipe(dev, state, corpus, cfg, work):
         "cpu_check": {"utterances": few, "same_words": True,
                       "cost_rtol": COST_RTOL},
         "blank_skip_guard": {"ok": ok, **info},
+        "score_sweep": {**sweep_res,
+                        "launches": state["recipe_launches"]["lattices"]},
+        "nnet": nnet_res, "proto": proto_res,
         "stage_seconds": stages,
     }
+
+
+def _recipe_sweep(run, test, refs, stats, hyps):
+    """(vii) RecipeRun.score_sweep over the test set at the recipe's
+    acwt_sweep, counters zeroed just before and read just after: the
+    guard's two searches, one search for the lattices, and the lattice
+    work on the host, timed apart.  The swept WER at the decode's acwt
+    must be the decode's, and each utterance's lattice best path there
+    the decode's words."""
+    import torch
+
+    acwt = run.cfg.decode.acoustic_scale
+    keys = sorted(test)
+    stage, search_s, seconds, frames, kept = ["other"], {}, {}, [], {}
+    search, guard, lattices = (run._run_search, run.check_blank_skip_parity,
+                               run.decode_lattices)
+
+    def timed_search(*args, **kwargs):
+        it = search(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            torch.cuda.synchronize()
+            search_s[stage[0]] = (search_s.get(stage[0], 0.0)
+                                  + time.perf_counter() - t0)
+            if item is None:
+                return
+            frames.append(item[1].shape[1])
+            yield item
+
+    def staged(name, fn):
+        def call(*args, **kwargs):
+            stage[0] = name
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = time.perf_counter() - t0
+                stage[0] = "other"
+        return call
+
+    def keep(feats, **kwargs):
+        kept["blank_skip"] = kwargs["decode_cfg"].blank_skip
+        kept["lats"] = lattices(feats, **kwargs)
+        return kept["lats"]
+
+    run._run_search = timed_search
+    run.check_blank_skip_parity = staged("guard", guard)
+    run.decode_lattices = staged("lattices", keep)
+    run._guard_cache.clear()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        sweep = run.score_sweep(test, refs)
+    finally:
+        del run._run_search, run.check_blank_skip_parity, run.decode_lattices
+    seconds["total"] = time.perf_counter() - t0
+    launches = {k: v for k, v in counters().items()
+                if k in ("lstm_fwd", "dedup_prune")}
+    predicted = kernel2_launches(run.graph, run.cfg.decode.max_active, frames)
+    want = {"lstm_fwd": 8 * len(frames), "dedup_prune": predicted}
+    if launches != want:
+        raise AssertionError(f"score_sweep launches {launches}, want {want}")
+    if sorted(sweep) != sorted(run.cfg.acwt_sweep):
+        raise AssertionError(f"swept acwts {sorted(sweep)}")
+    if sweep[acwt].wer != stats.wer:
+        raise AssertionError(f"swept WER at {acwt}: {sweep[acwt].wer}, "
+                             f"decode {stats.wer}")
+    words = run.lang.words
+    differ = [u for u in keys if [words.sym(w) for w in kept["lats"][u]
+                                  .scaled(acwt).best_path()[1]] != hyps[u]]
+    if differ or kept["blank_skip"] != run.cfg.decode.blank_skip:
+        raise AssertionError(f"lattice best paths differ on {differ}, "
+                             f"blank_skip {kept['blank_skip']}")
+    lattice_search = search_s.get("lattices", 0.0)
+    return {
+        "utterances": keys, "acwt": acwt,
+        "wer": {str(a): sweep[a].wer for a in sorted(sweep)},
+        "report": {str(a): sweep[a].report() for a in sorted(sweep)},
+        "decode_wer": stats.wer, "best_paths_equal_decode": True,
+        "lattice_blank_skip": kept["blank_skip"],
+        "searched_frames": frames, "kernel2_predicted": predicted,
+        "lattice_states": {u: kept["lats"][u].num_states for u in keys},
+        "lattice_arcs": {u: kept["lats"][u].num_arcs for u in keys},
+        "seconds": {"total": seconds["total"], "guard": seconds["guard"],
+                    "guard_search": search_s.get("guard", 0.0),
+                    "lattice_search": lattice_search,
+                    "lattice_host": seconds["lattices"] - lattice_search},
+        "launches": launches,
+    }
+
+
+def _recipe_nnet(run, test, work, dev):
+    """(viii) write_eesen_nnet of the trained parameters, read back onto
+    the card: equal bits in every tensor, and the read-back model's
+    posteriors on one test chunk equal the trained model's bit for bit."""
+    import torch
+    from eesen_tpu_torch.models.serialize import (
+        read_eesen_nnet, write_eesen_nnet,
+    )
+    from eesen_tpu_torch.recipes.run import _pad_chunk, posteriors
+    from eesen_tpu_torch.training.optim import tree_leaves
+
+    path = os.path.join(work, "final.nnet")
+    t0 = time.perf_counter()
+    write_eesen_nnet(path, run.params, run.model_cfg, parallel=True)
+    t1 = time.perf_counter()
+    back, cfg = read_eesen_nnet(path, device=dev)
+    t2 = time.perf_counter()
+    mcfg = run.model_cfg
+    shape = ("input_dim", "cell_dim", "num_layers", "num_targets",
+             "bidirectional")
+    if any(getattr(cfg, f) != getattr(mcfg, f) for f in shape):
+        raise AssertionError(f"read config {cfg} vs {mcfg}")
+    pairs = list(zip(tree_leaves(run.params), tree_leaves(back)))
+    if len(tree_leaves(run.params)) != len(pairs) or not all(
+            b.device == a.device and b.dtype == torch.float32
+            and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("read-back parameters differ")
+    chunk = sorted(test)[:8]
+    arr, lens = _pad_chunk(test, chunk, 128, 8)
+    lp = [posteriors(p, mcfg, arr, lens, run.log_priors, dev)
+          for p in (run.params, back)]
+    if not torch.equal(lp[0], lp[1]):
+        raise AssertionError("read-back posteriors differ: max "
+                             f"{float((lp[0] - lp[1]).abs().max())}")
+    return {"bytes": os.path.getsize(path), "tensors": len(pairs),
+            "write_s": t1 - t0, "read_s": t2 - t1,
+            "posteriors_shape": list(lp[0].shape), "bit_equal": True}
+
+
+def _recipe_protos(run):
+    """(ix) emit_nnet_proto -> parse_nnet_proto for every RECIPES model
+    (targets as this corpus's lang gives them) and the trained one: the
+    proto's fields come back."""
+    import dataclasses
+
+    from eesen_tpu_torch.models.proto import emit_nnet_proto, parse_nnet_proto
+    from eesen_tpu_torch.recipes.config import RECIPES
+
+    fields = ("input_dim", "cell_dim", "num_layers", "num_targets",
+              "param_range", "fgate_bias", "forward_dropout",
+              "recurrent_dropout", "forward_step_dropout",
+              "recurrent_step_dropout", "recurrent_dropout_mode", "twiddle",
+              "bidirectional")
+    cfgs = {name: dataclasses.replace(
+        r.model, num_targets=run.model_cfg.num_targets)
+        for name, r in sorted(RECIPES.items())}
+    cfgs["trained"] = run.model_cfg
+    lines = {}
+    for name, cfg in cfgs.items():
+        text = emit_nnet_proto(cfg)
+        back = parse_nnet_proto(text)
+        bad = [f for f in fields if getattr(back, f) != getattr(cfg, f)]
+        if bad:
+            raise AssertionError(f"proto {name}: {bad}")
+        lines[name] = len(text.splitlines())
+    return {"models": sorted(cfgs), "lines": lines}
 
 
 def kernels_report(state, timing):
@@ -2708,6 +2891,7 @@ def kernels_report(state, timing):
          "libri_train_launches": state["libri_train_launches"]["lstm_fwd"],
          "recipe_train_launches": rl["train"]["lstm_fwd"],
          "recipe_decode_launches": rl["decode"]["lstm_fwd"],
+         "recipe_lattice_launches": rl["lattices"]["lstm_fwd"],
          "h640": h640["lstm_fwd"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
@@ -2737,6 +2921,7 @@ def kernels_report(state, timing):
          "pipeline_launches":
              state["stream_launches"]["pipeline"]["dedup_prune"],
          "recipe_decode_launches": rl["decode"]["dedup_prune"],
+         "recipe_lattice_launches": rl["lattices"]["dedup_prune"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
          "plain_ms": dt["plain_ms"],

@@ -14,6 +14,7 @@ run_ctc_*.sh pipeline (reference: asr_egs/wsj/run_ctc_phn.sh:21-97):
     feats = run.compute_features(data)
     run.train(tr_feats, tr_labels, cv_feats, cv_labels)
     run.build_graph(arpa_text); stats, hyps = run.decode(test_feats, refs)
+    wer_by_acwt = run.score_sweep(test_feats, refs)    # lattices, one decode
 
 The serving functions under it take parameters directly:
 
@@ -29,9 +30,10 @@ kernel, the search through the recombination kernel.  With
 blank-dominated runs of the prior-divided posteriors are merged first
 (decoder/frame_skip.py) and the search runs on the compacted frames.
 Streaming is models/streaming.py; greedy decoding decoder/greedy.py.
-Not ported yet: the mesh path (`RecipeRun(mesh=...)`) and the lattice
-stages (`decode_lattices`, `score_sweep`), which need
-decoder/{lattice,clat}.
+The lattice stages (`decode_lattices`, `score_sweep`) search on the
+device and build, prune and determinize the lattices on the host
+(decoder/{lattice,clat}).  Not ported yet: the mesh path
+(`RecipeRun(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -48,11 +50,15 @@ from eesen_tpu_torch.decoder.arpa import arpa_to_fst
 from eesen_tpu_torch.decoder.beam import (
     BeamOutputs, BeamSearchConfig, DeviceGraph, make_beam_decoder, traceback,
 )
+from eesen_tpu_torch.decoder.clat import (
+    CompactLattice, determinize_lattice_pruned,
+)
 from eesen_tpu_torch.decoder.ctc_graph import (
     Lang, build_full_compiled, compile_lang,
 )
 from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
 from eesen_tpu_torch.decoder.graph_compile import CompiledGraph
+from eesen_tpu_torch.decoder.lattice import lattice_from_beam
 from eesen_tpu_torch.decoder.score import WerStats, compute_wer
 from eesen_tpu_torch.frontend.features import fbank, num_frames
 from eesen_tpu_torch.frontend.pipeline import (
@@ -211,6 +217,8 @@ class RecipeRun:
         self.log_priors: Optional[np.ndarray] = None
         self.params = None            # decode-ready model parameters
         self.model_cfg = None
+        # score_sweep's blank-skip verdicts by (sorted keys, blank_skip)
+        self._guard_cache: Dict[Tuple, Tuple[bool, Dict]] = {}
 
     # ---- stage 1: lang + labels ----
     def build_lang(self) -> Lang:
@@ -532,18 +540,115 @@ class RecipeRun:
         mismatched = sorted(k for k in pick if skip.get(k) != full.get(k))
         return not mismatched, {"checked": pick, "mismatched": mismatched}
 
-    def decode_lattices(self, feats, **kwargs):
-        """Not ported yet: needs decoder/{lattice,clat} (ROADMAP.md queue
-        1, item 7)."""
-        raise NotImplementedError(
-            "decode_lattices needs decoder/{lattice,clat}, not ported yet "
-            "(ROADMAP.md queue 1, item 7)"
-        )
+    def decode_lattices(
+        self,
+        feats: Dict[str, np.ndarray],
+        batch_size: int = 8,
+        lattice_beam: Optional[float] = None,
+        keep_tokens: int = 64,
+        decode_cfg: Optional[BeamSearchConfig] = None,
+    ) -> Dict[str, CompactLattice]:
+        """Decode ONCE and return determinized CompactLattices with
+        UNSCALED acoustic costs, ready for acwt sweeps/rescoring without
+        re-decoding (reference: DecodeUtteranceLatticeFaster decodes,
+        determinizes in the pair semiring, unscales by 1/acwt, writes —
+        decoder-wrappers.cc:87-107; scoring then sweeps by lattice-scale,
+        local/score.sh:44-55).
 
-    def score_sweep(self, feats, refs, **kwargs):
-        """Not ported yet: its per-acwt WER comes from decode_lattices
-        (ROADMAP.md queue 1, item 7)."""
-        raise NotImplementedError(
-            "score_sweep needs decode_lattices, not ported yet "
-            "(ROADMAP.md queue 1, item 7)"
+        The search runs on `device`; each chunk's outputs and
+        log-posteriors come to the host once, and the lattice work
+        (reconstruction, pruning, determinization) is host numpy.
+
+        With cfg.blank_skip > 0 the lattices span the COMPACTED frame
+        axis (each blank run merged into one run-summed frame); path
+        costs, word sequences and acwt sweeps match the full decode
+        (frame_skip.py docstring), but per-frame CTM timings refer to
+        kept frames only."""
+        assert self.graph is not None
+        base = decode_cfg if decode_cfg is not None else self.cfg.decode
+        lbeam = (
+            lattice_beam if lattice_beam is not None
+            else (base.lattice_beam or 8.0)
         )
+        cfg = dataclasses.replace(base, lattice_beam=lbeam)
+        acwt = cfg.acoustic_scale
+        lats: Dict[str, CompactLattice] = {}
+        for chunk, lp, lens, out in self._run_search(
+            feats, sorted(feats), cfg, batch_size
+        ):
+            host = out.numpy()
+            ll = lp.detach().to("cpu", torch.float32).numpy()
+            for j, k in enumerate(chunk):
+                raw = lattice_from_beam(
+                    host, j, int(lens[j]), self.graph, ll[j],
+                    acwt, keep_tokens=keep_tokens,
+                )
+                # lattice_beam applies in the search-cost domain (the
+                # raw lattice's acoustics are scaled by acwt, like the
+                # reference's in-decoder costs)
+                raw.prune(lbeam)
+                clat = determinize_lattice_pruned(raw, lattice_beam=lbeam)
+                # store with unscaled acoustics for later sweeps
+                lats[k] = clat.scaled(1.0 / acwt if acwt else 1.0)
+        return lats
+
+    def score_sweep(
+        self,
+        feats,
+        refs,
+        acwts: Optional[Tuple[float, ...]] = None,
+        word_ins_penalty: float = 0.0,
+        batch_size: int = 8,
+    ) -> Dict[float, WerStats]:
+        """Per-acwt WER from ONE decode pass: lattices are generated once
+        and rescaled per acwt (local/score.sh:44-55 lattice-scale |
+        lattice-best-path | compute-wer).
+
+        With blank-skip on, the blank-skip guard runs first and a failed
+        verdict decodes this pass without skipping.  The verdict is
+        cached per (sorted keys, blank_skip), as the JAX package caches
+        it: the key leaves out the model, so after more training or new
+        parameters a second sweep over the same keys reuses the old
+        verdict (ROADMAP.md §3)."""
+        assert self.lang is not None
+        words = self.lang.words
+        dcfg = self.cfg.decode
+        if dcfg.blank_skip > 0.0 and self.cfg.blank_skip_guard > 0:
+            guard_key = (tuple(sorted(feats)), dcfg.blank_skip)
+            cached = self._guard_cache.get(guard_key)
+            if cached is not None:
+                ok, info = cached
+            else:
+                ok, info = self.check_blank_skip_parity(
+                    feats, batch_size=batch_size
+                )
+                self._guard_cache[guard_key] = (ok, info)
+            if ok:
+                log.info(
+                    "blank-skip parity guard: %d/%d sampled utterances "
+                    "word-identical to the full decode",
+                    len(info["checked"]), len(info["checked"]),
+                )
+            else:
+                log.warning(
+                    "blank-skip parity guard FAILED on %s — falling back "
+                    "to the full (non-skipping) decode for this pass",
+                    info["mismatched"],
+                )
+                dcfg = dataclasses.replace(dcfg, blank_skip=0.0)
+        lats = self.decode_lattices(
+            feats, batch_size=batch_size, decode_cfg=dcfg
+        )
+        out: Dict[float, WerStats] = {}
+        for acwt in acwts or self.cfg.acwt_sweep:
+            hyps: Dict[str, List[str]] = {}
+            for k, clat in lats.items():
+                sc = clat.scaled(acwt)
+                if word_ins_penalty:
+                    sc.add_penalty(word_ins_penalty)
+                _, wids, _ = sc.best_path()
+                hyps[k] = [words.sym(w) for w in wids]
+            stats = compute_wer(refs, hyps)
+            log.info("acwt %.2f: %s", acwt, stats.report())
+            out[acwt] = stats
+        return out

@@ -992,13 +992,11 @@ def test_pitch_on_card_matches_golden(dev, name, tol_pitch, tol_nccf):
     assert np.abs(got[:, 0] - gold[:, 0]).max() <= tol_nccf
 
 
-def test_recipe_decode_on_card_matches_cpu(dev, tmp_path):
-    """RecipeRun on a small synthetic corpus: features on the card
-    within FE_TOL of the CPU's (no dither), then the same parameters
-    decode on the card (kernels 1 and 2) and on the CPU: the same words,
-    costs within 1e-4 relative (f32 compute and f32 state: with
-    state_bf16 kernel 1 rounds m to bf16, which the CPU path never does,
-    and the costs move by ~1e-3)."""
+def _card_and_cpu_recipes(dev, tmp_path, **decode):
+    """RecipeRun on a small synthetic corpus on the card and on the CPU
+    (f32 compute and f32 state), features on each side, the same
+    parameters (output affine x20) in both: (runs by device type,
+    features by device type, cfg)."""
     import dataclasses
 
     from eesen_tpu_torch.decoder.beam import BeamSearchConfig
@@ -1026,41 +1024,143 @@ def test_recipe_decode_on_card_matches_cpu(dev, tmp_path):
                                   compute_dtype=torch.float32,
                                   state_bf16=False),
         decode=BeamSearchConfig(beam=14.0, max_active=256,
-                                acoustic_scale=0.9, blank_skip=0.98))
-    runs = {d: trun.RecipeRun(cfg, str(tmp_path / d.type), lex, units,
-                              device=d)
+                                acoustic_scale=0.9, blank_skip=0.98,
+                                **decode))
+    runs = {d.type: trun.RecipeRun(cfg, str(tmp_path / d.type), lex, units,
+                                   device=d)
             for d in (dev, torch.device("cpu"))}
     feats = {}
     for d, run in runs.items():
         run.build_lang()
-        feats[d.type] = run.compute_features(data, dither_seed=None)
+        feats[d] = run.compute_features(data, dither_seed=None)
         run.build_graph(estimate_bigram_arpa(list(text.values())))
-    for k, v in feats["cpu"].items():
-        np.testing.assert_allclose(feats["cuda"][k], v, rtol=FE_TOL,
-                                   atol=FE_TOL)
     mcfg = dataclasses.replace(cfg.model, num_targets=len(units) + 1)
     params = init_model(torch.Generator().manual_seed(0), mcfg, "cpu")
     params["out"]["w"] = params["out"]["w"] * 20.0
     log_priors = np.full(len(units) + 1, -np.log(len(units) + 1), np.float32)
-    res = {}
     for d, run in runs.items():
         run.params = {"layers": [{k: {n: p.to(d) for n, p in v.items()}
                                   for k, v in layer.items()}
                                  for layer in params["layers"]],
                       "out": {n: p.to(d) for n, p in params["out"].items()}}
         run.model_cfg, run.log_priors = mcfg, log_priors
+    return runs, feats, text
+
+
+def test_recipe_decode_on_card_matches_cpu(dev, tmp_path):
+    """RecipeRun on a small synthetic corpus: features on the card
+    within FE_TOL of the CPU's (no dither), then the same parameters
+    decode on the card (kernels 1 and 2) and on the CPU: the same words,
+    costs within 1e-4 relative (f32 compute and f32 state: with
+    state_bf16 kernel 1 rounds m to bf16, which the CPU path never does,
+    and the costs move by ~1e-3)."""
+    runs, feats, _ = _card_and_cpu_recipes(dev, tmp_path)
+    for k, v in feats["cpu"].items():
+        np.testing.assert_allclose(feats["cuda"][k], v, rtol=FE_TOL,
+                                   atol=FE_TOL)
+    res = {}
+    for d, run in runs.items():
         before = (lstm_cuda.launches, beam_cuda.launches)
         out = {}
         for chunk, _, lens, o in run._run_search(
-                feats["cpu"], sorted(feats["cpu"]), cfg.decode, 8):
+                feats["cpu"], sorted(feats["cpu"]), run.cfg.decode, 8):
             for key, r in zip(chunk, tbeam.traceback(
                     o, lens, run.graph.final_weight)):
                 out[key] = r
-        res[d.type] = out
-        if d.type == "cuda":
+        res[d] = out
+        if d == "cuda":
             assert lstm_cuda.launches == before[0] + 4
             assert beam_cuda.launches > before[1]
     assert sum(len(w) for w, _ in res["cpu"].values()) > 0
     for key, (words, cost) in res["cpu"].items():
         assert res["cuda"][key][0] == words, key
         np.testing.assert_allclose(res["cuda"][key][1], cost, rtol=1e-4)
+
+
+def test_recipe_lattices_on_card_match_cpu(dev, tmp_path):
+    """decode_lattices and score_sweep on the card (kernels 1 and 2 in
+    the search, the lattices on the host) against the CPU, from the CPU's
+    features and the same parameters at f32 with state_bf16 off: at each
+    acwt the same best-path words, costs within 1e-4 relative, the same
+    WERs; at the decode's acwt the best-path decode's words, and the
+    swept WER the best-path WER of the search the sweep ran (blank-skip
+    where its guard passed, else the full search; lattice beam 4 keeps
+    the random model's determinization to seconds)."""
+    import dataclasses
+
+    from eesen_tpu_torch.decoder.score import compute_wer
+
+    runs, feats, text = _card_and_cpu_recipes(dev, tmp_path,
+                                              lattice_beam=4.0)
+    test = feats["cpu"]
+    refs = {k: text[k] for k in test}
+    lats, sweeps = {}, {}
+    for d, run in runs.items():
+        before = lstm_cuda.launches
+        lats[d] = run.decode_lattices(test)
+        if d == "cuda":
+            assert lstm_cuda.launches == before + 4
+        sweeps[d] = run.score_sweep(test, refs, acwts=(0.5, 0.9, 1.3))
+    stats, hyps = runs["cuda"].decode(test, refs)
+    words = runs["cuda"].lang.words
+    assert sorted(lats["cuda"]) == sorted(lats["cpu"]) == sorted(test)
+    for key, clat in lats["cpu"].items():
+        for acwt in (0.5, 0.9, 1.3):
+            _, w_cpu, c_cpu = clat.scaled(acwt).best_path()
+            _, w_card, c_card = lats["cuda"][key].scaled(acwt).best_path()
+            assert list(w_card) == list(w_cpu), (key, acwt)
+            np.testing.assert_allclose(c_card, c_cpu, rtol=1e-4)
+        best = lats["cuda"][key].scaled(0.9).best_path()[1]
+        assert [words.sym(w) for w in best] == hyps[key], key
+    for acwt, st in sweeps["cpu"].items():
+        assert (dataclasses.asdict(sweeps["cuda"][acwt])
+                == dataclasses.asdict(st)), acwt
+    # the sweep decodes with blank-skip only where its guard passed
+    (ok, _), = runs["cuda"]._guard_cache.values()
+    if not ok:
+        cfg = dataclasses.replace(runs["cuda"].cfg.decode, blank_skip=0.0)
+        hyps = {}
+        for chunk, _, lens, o in runs["cuda"]._run_search(
+                test, sorted(test), cfg, 8):
+            for key, (wids, _) in zip(chunk, tbeam.traceback(
+                    o, lens, runs["cuda"].graph.final_weight)):
+                hyps[key] = [words.sym(w) for w in wids]
+        stats = compute_wer(refs, hyps)
+    assert sweeps["cuda"][0.9].wer == stats.wer
+
+
+def test_nnet_roundtrip_on_card(dev, tmp_path):
+    """write_eesen_nnet of parameters on the card, read back onto the
+    card and onto the CPU: equal bits in every tensor, and the read-back
+    model's posteriors on the card equal the original's bit for bit
+    (the same kernels on the same inputs)."""
+    from eesen_tpu_torch.models.model import AcousticModelConfig, init_model
+    from eesen_tpu_torch.models.serialize import (
+        read_eesen_nnet, write_eesen_nnet,
+    )
+    from eesen_tpu_torch.recipes.run import posteriors
+    from eesen_tpu_torch.training.optim import tree_leaves
+
+    for bidirectional in (True, False):
+        cfg = AcousticModelConfig(input_dim=40, cell_dim=64, num_layers=2,
+                                  num_targets=30,
+                                  bidirectional=bidirectional)
+        params = init_model(torch.Generator().manual_seed(1), cfg, dev)
+        path = str(tmp_path / f"final_{bidirectional}.nnet")
+        write_eesen_nnet(path, params, cfg, parallel=True)
+        back, bcfg = read_eesen_nnet(path, device=dev)
+        host, _ = read_eesen_nnet(path, device="cpu")
+        assert bcfg == cfg
+        for a, b, c in zip(tree_leaves(params), tree_leaves(back),
+                           tree_leaves(host)):
+            assert b.device == a.device and b.dtype == torch.float32
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+        feats = np.random.default_rng(2).standard_normal(
+            (3, 50, 40)).astype(np.float32)
+        lens = [50, 41, 17]
+        before = lstm_cuda.launches
+        want = posteriors(params, cfg, feats, lens, device=dev)
+        got = posteriors(back, bcfg, feats, lens, device=dev)
+        assert lstm_cuda.launches == before + 2 * (
+            4 if bidirectional else 2)
+        assert torch.equal(got, want)

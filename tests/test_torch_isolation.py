@@ -16,6 +16,7 @@ from eesen_tpu_torch.decoder import graph_compile as t_gc
 from eesen_tpu_torch.frontend import features as tfeat
 from eesen_tpu_torch.frontend import pitch as tpitch
 from eesen_tpu_torch.models import model as tmodel
+from eesen_tpu_torch.models import serialize as tser
 from eesen_tpu_torch.models import streaming as tstream
 from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
 from eesen_tpu_torch.recipes import run as trun
@@ -77,12 +78,14 @@ def tiny_graph():
     "decode", "create_train_state", "trainer", "opt_state_from_jax",
     "stream_state", "streaming_am", "streaming_decoder",
     "streaming_pipeline", "recipe_run", "fbank", "kaldi_pitch",
+    "read_eesen_nnet",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
     cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
                                      num_targets=3)
     params = tmodel.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
     ucfg = dataclasses.replace(cfg, bidirectional=False)
+    nnet = str(tmp_path / "final.nnet")     # written from CPU tensors
     calls = {
         "init_model": lambda: tmodel.init_model(torch.Generator(), cfg),
         "params_from_jax": lambda: tmodel.params_from_jax(
@@ -109,6 +112,8 @@ def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
             RECIPES["wsj_phn"], str(tmp_path), [("a", ("x",))], ["x"]),
         "fbank": lambda: tfeat.fbank(np.zeros(800, np.float32)),
         "kaldi_pitch": lambda: tpitch.kaldi_pitch(np.zeros(800, np.float32)),
+        "read_eesen_nnet": lambda: tser.read_eesen_nnet((
+            tser.write_eesen_nnet(nnet, params, cfg), nnet)[1]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

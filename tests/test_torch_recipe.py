@@ -95,8 +95,10 @@ def configs(blank_skip=0.98, max_iters=1):
     common = dict(name="toy", dict_type="phn", blank_skip_guard=3)
     newbob = dict(learn_rate=0.05, max_iters=max_iters, min_iters=1)
     batch = dict(num_sequence=4, frame_limit=20000, time_quant=32)
+    # lattice_beam 3: the random models' lattices at the recipes' 8.0
+    # take ~60 s a package to determinize on this corpus
     decode = dict(beam=20.0, max_active=256, acoustic_scale=0.9,
-                  blank_skip=blank_skip)
+                  blank_skip=blank_skip, lattice_beam=3.0)
     model = dict(input_dim=60, cell_dim=8, num_layers=1, num_targets=-1)
     j = jconfig.RecipeConfig(
         fbank=jfeat.FbankOptions(mel_opts=jfeat.MelOptions(num_bins=20)),
@@ -338,8 +340,131 @@ def test_unported_stages_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 6"):
         trun.RecipeRun(tcfg, str(tmp_path), LEXICON, PHONES, mesh=object(),
                        device="cpu")
-    run = trun.RecipeRun(tcfg, str(tmp_path), LEXICON, PHONES, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run.decode_lattices({})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run.score_sweep({}, {})
+
+
+# the JAX recipe test's sweep (tests/test_recipe_e2e.py:149-156)
+ACWTS = (0.5, 0.9, 1.3)
+
+
+def best_path_words(run, feats, blank_skip):
+    """The best-path decode's words with the recipe's search at
+    `blank_skip` (what RecipeRun.decode gives at its own setting)."""
+    from eesen_tpu_torch.decoder.beam import traceback
+
+    cfg = dataclasses.replace(run.cfg.decode, blank_skip=blank_skip)
+    hyps = {}
+    for chunk, _, lens, out in run._run_search(feats, sorted(feats), cfg, 8):
+        for k, (wids, _) in zip(chunk, traceback(out, lens,
+                                                 run.graph.final_weight)):
+            hyps[k] = [run.lang.words.sym(w) for w in wids]
+    return hyps
+
+
+def _keep_lattices(run):
+    """Wrap run.decode_lattices so that the lattices score_sweep scores,
+    and the blank-skip setting it decoded them at, are kept."""
+    kept, decode_lattices = {}, run.decode_lattices
+
+    def wrapped(feats, **kwargs):
+        kept["blank_skip"] = kwargs["decode_cfg"].blank_skip
+        kept["lats"] = decode_lattices(feats, **kwargs)
+        return kept["lats"]
+
+    run.decode_lattices = wrapped
+    return kept
+
+
+@pytest.fixture(scope="module")
+def swept(decoded, prepared):
+    """score_sweep at ACWTS and the recipe's acwt_sweep in both runs, on
+    the JAX features (the lattices are held, not the front end), with the
+    lattices it scored.  The guard caches are emptied first: the runs are
+    shared by both output scales."""
+    jr, tr = prepared["jr"], prepared["tr"]
+    feats, refs = prepared["jfeats"], prepared["text"]
+    acwts = tuple(sorted(set(ACWTS) | set(tr.cfg.acwt_sweep)))
+    res = dict(acwts=acwts)
+    for side, run in (("j", jr), ("t", tr)):
+        run._guard_cache = {}
+        kept = _keep_lattices(run)
+        try:
+            res[side] = run.score_sweep(feats, refs, acwts=acwts)
+        finally:
+            del run.decode_lattices            # the class's method again
+        res[f"{side}lats"], res[f"{side}skip"] = kept["lats"], kept[
+            "blank_skip"]
+    res["words"] = best_path_words(tr, feats, res["tskip"])
+    return res
+
+
+def test_score_sweep_matches_jax(swept, decoded):
+    """Per-acwt WER equal to the JAX package's at (0.5, 0.9, 1.3) and the
+    recipe's sweep, from lattices of the same search (blank-skip where
+    the guard passed, else the full search); at the decode's acwt the
+    swept WER is RecipeRun.decode's where the guard passed."""
+    assert swept["tskip"] == swept["jskip"] == (
+        0.98 if decoded["agree"] else 0.0)
+    assert sorted(swept["t"]) == sorted(swept["j"]) == list(swept["acwts"])
+    for acwt, stats in swept["j"].items():
+        assert (dataclasses.asdict(swept["t"][acwt])
+                == dataclasses.asdict(stats)), acwt
+    if decoded["agree"]:
+        assert swept["t"][0.9].wer == pytest.approx(decoded["t"][0].wer,
+                                                    abs=1e-9)
+        assert swept["words"] == decoded["t"][1]
+
+
+def test_decode_lattices_match_jax(swept, prepared):
+    """Each utterance's determinized lattice (unscaled acoustics): at
+    ACWTS the JAX package's best-path words, costs within 1e-4 relative;
+    at the decode's acwt, the best-path decode's words."""
+    jl, tl = swept["jlats"], swept["tlats"]
+    assert sorted(tl) == sorted(jl) == sorted(prepared["jfeats"])
+    words = prepared["tr"].lang.words
+    for k in sorted(tl):
+        for acwt in ACWTS:
+            _, tw, tc = tl[k].scaled(acwt).best_path()
+            _, jw, jc = jl[k].scaled(acwt).best_path()
+            assert list(tw) == list(jw), (k, acwt)
+            assert tc == pytest.approx(jc, rel=1e-4)
+        best = tl[k].scaled(0.9).best_path()[1]
+        assert [words.sym(w) for w in best] == swept["words"][k], k
+    assert sum(len(w) for w in swept["words"].values()) > 0
+
+
+def test_sweep_guard_cache_is_stale_in_both(prepared, tmp_path):
+    """Pinned, not fixed (eesen_tpu/recipes/run.py:526): score_sweep
+    caches the blank-skip verdict by (sorted keys, blank_skip) without the
+    model.  After a sweep at output scale 5 (the guard passes), the output
+    layer is rescaled to 20, where a fresh guard fails; a second sweep
+    reuses the cached pass and decodes with blank-skip, in both
+    packages."""
+    jcfg, _ = configs()
+    feats, refs = prepared["jfeats"], prepared["text"]
+    log_priors = np.log(np.full(len(PHONES) + 1, 1.0 / (len(PHONES) + 1),
+                                np.float32))
+    for side, run in zip(("j", "t"), runs(tmp_path)):
+        run.lang = prepared[f"{side}r"].lang
+        run.build_graph(ARPA)
+        guard, skips = run.check_blank_skip_parity, []
+
+        def counted(*args, **kwargs):
+            skips.append("guard")
+            return guard(*args, **kwargs)
+
+        def lattices(feats, batch_size=8, decode_cfg=None, **kwargs):
+            skips.append(decode_cfg.blank_skip)
+            return {}
+
+        run.check_blank_skip_parity, run.decode_lattices = counted, lattices
+        for scale in (5.0, 20.0):
+            cfg, params = carried_params(jcfg, PHONES, scale)
+            run.params = (params if side == "j"
+                          else tmodel.params_from_jax(params, device="cpu"))
+            run.model_cfg = (cfg if side == "j" else dataclasses.replace(
+                run.cfg.model, num_targets=len(PHONES) + 1))
+            run.log_priors = log_priors
+            if scale == 20.0:                  # a fresh verdict fails
+                assert not guard(feats)[0], side
+            run.score_sweep(feats, refs, acwts=(0.9,))
+        assert skips == ["guard", 0.98, 0.98], side
