@@ -126,6 +126,24 @@ Phases, one JSON line each:
           seconds per step and audio-s/s = B*T*0.010 / (s per step);
           (iii) one step under the profiler, the CTC kernels' device
           time apart.
+  mesh    the data-parallel path (parallel/): (i) a world of one over
+          NCCL in this process: Trainer(mesh=...) and the plain Trainer
+          from the same parameters, MESH_STEPS steps each at B=128, T=768,
+          L=100 (plain, mesh, mesh, plain), equal parameter bits and
+          reports, the same 8/8/1/1 launches a step (counters zeroed just
+          before each run); s a step of each, and the all-reduce of one
+          step's gradient bucket alone; make_sharded_beam_decoder over
+          phase main's 8 utterances: main's words and costs.  (ii) two
+          ranks on the one card over gloo, spawned as `chip_smoke.py
+          --mesh-rank R PORT DIR`: MESH_STEPS steps of 2 x 32 rows in f32
+          against this process's step over the 64 rows (loss and
+          parameters at rtol 1e-4 / atol 1e-5), the ranks' parameters
+          equal bits, 8/8/1/1 launches a step on each; the sharded decode
+          of main's utterances, 4 a rank (posteriors on the rank's rows,
+          gathered): main's words, costs within 1e-4, kernels lstm_fwd
+          and dedup_prune launched on each rank; s a step and the
+          all-reduce's share (the ranks share the card's SMs: not a
+          scaling figure).
   lstm_v1 the v1 route at the LibriSpeech width and its own: (i) kernel
           lstm_scan_fwd vs its plain version (B=128, T=768, H=640 and
           H=1152, training lengths with a length-0 row; m, c, c_raw at
@@ -213,6 +231,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 B = 8
 T_MAX = 512
@@ -243,6 +262,19 @@ TRAIN_B, TRAIN_T, TRAIN_L = 128, 768, 100
 TRAIN_HEAD = (768, 731, 640, 512, 397, 256, 128, 0)   # rows 0-7; rest 768
 TRAIN_STEPS = 5
 LEARN_RATE = 4e-5
+# launches of one training step of the 4 x 320 model, by counter
+TRAIN_STEP_LAUNCHES = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
+                       "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
+# the mesh path: (i) Trainer(mesh=...) over NCCL in a world of one,
+# MESH_STEPS steps at the training shapes beside the plain Trainer; (ii)
+# MESH_RANKS ranks on the one card over gloo (NCCL refuses two ranks on
+# one GPU), MESH_RANK_ROWS rows each in f32, held as
+# tests/test_shard_map_step.py holds the JAX step; each spawned run is
+# killed past MESH_TIMEOUT_S
+MESH_STEPS, MESH_RANKS, MESH_RANK_ROWS = 3, 2, 32
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
+MESH_TIMEOUT_S = 300
+MESH_REPS = 5
 # the LibriSpeech char recipe (recipes/config.py:149-170): 4 x 640 over
 # 360-d input (40 fbank + deltas, spliced +-1), 30 targets (blank + 29
 # characters; the recipe takes the count from its lang dir); 3 frames per
@@ -572,7 +604,8 @@ def phase_main(dev, graphs, state):
     if not lp_err <= LP_ATOL:
         raise AssertionError(f"log-posteriors differ by {lp_err}")
     state.update(params=params, cfg=cfg, arr=arr, lens=lens,
-                 log_priors=log_priors, lp=lp)
+                 log_priors=log_priors, lp=lp,
+                 hyps=[hyps[k] for k in chunk])
     return {"utterances": len(hyps), "frames": int(sum(LENGTHS)),
             "wall_s": wall, "launches": launches, "overflow": overflow,
             "lp_max_abs_err_vs_cpu": lp_err, "lp_atol": LP_ATOL,
@@ -1089,20 +1122,31 @@ def phase_ctc(dev):
             "atol": CTC_ATOL, "states": states}
 
 
-def train_setup(dev):
-    """The flagship model, its SGD state and one fixed batch (bench.py's:
-    normal features, random labels; rows 0-7 of mixed length, row 7 a
-    padded row of 0 frames and 0 labels)."""
+def train_setup(dev, **model):
+    """The flagship model (with `model`'s fields replaced), its SGD state
+    and one fixed batch on `dev` (train_batch)."""
     import torch
     from eesen_tpu_torch.models.model import AcousticModelConfig
-    from eesen_tpu_torch.training.optim import OptimizerConfig
     from eesen_tpu_torch.training.trainer import create_train_state
 
     cfg = AcousticModelConfig(input_dim=120, cell_dim=320, num_layers=4,
-                              num_targets=72)
-    opt = OptimizerConfig(algorithm="sgd", momentum=0.9, max_grad=50.0)
+                              num_targets=72, **model)
     st, tx = create_train_state(torch.Generator().manual_seed(SEED), cfg,
-                                opt, device=dev)
+                                train_opt(), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch().items()}
+    return cfg, st, tx, batch
+
+
+def train_opt():
+    from eesen_tpu_torch.training.optim import OptimizerConfig
+
+    return OptimizerConfig(algorithm="sgd", momentum=0.9, max_grad=50.0)
+
+
+def train_batch():
+    """bench.py's batch as host arrays: normal features, random labels;
+    rows 0-7 of mixed length, row 7 a padded row of 0 frames and 0
+    labels."""
     rng = np.random.default_rng(SEED + 7)
     lens = train_lengths()
     lab_l = np.minimum(TRAIN_L, lens // 3)
@@ -1111,11 +1155,8 @@ def train_setup(dev):
     for i in range(TRAIN_B):
         feats[i, lens[i]:] = 0.0
         labels[i, lab_l[i]:] = 0
-    batch = {"feats": feats, "feat_lengths": lens, "labels": labels,
-             "label_lengths": lab_l}
-    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-             for k, v in batch.items()}
-    return cfg, st, tx, batch
+    return {"feats": feats, "feat_lengths": lens, "labels": labels,
+            "label_lengths": lab_l}
 
 
 def card_vs_cpu_step(step, st, b8, gen_seed=None):
@@ -1547,9 +1588,7 @@ def phase_libri(dev, state):
     state["libri_train_launches"] = launched
     per_step = {k: v / LIBRI_STEPS for k, v in launched.items()}
     losses = [float(v) for v in losses]
-    want = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
-            "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
-    if per_step != want or not np.all(np.isfinite(losses)):
+    if per_step != TRAIN_STEP_LAUNCHES or not np.all(np.isfinite(losses)):
         raise AssertionError(f"libri launches per step {per_step}, "
                              f"losses {losses}")
     s_step = wall / LIBRI_STEPS
@@ -1629,9 +1668,7 @@ def phase_train(dev, state):
     state["train_launches"] = launches
     losses = [float(x) for x in losses]
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    want = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
-            "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
-    if per_step != want or not np.all(np.isfinite(losses)):
+    if per_step != TRAIN_STEP_LAUNCHES or not np.all(np.isfinite(losses)):
         raise AssertionError(f"launches per step {per_step}, losses {losses}")
     s_step = wall / TRAIN_STEPS
     # (iii) one step under the profiler
@@ -1646,6 +1683,312 @@ def phase_train(dev, state):
             "audio_s_per_s": TRAIN_B * TRAIN_T * 0.010 / s_step,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "profile": _profile(one_step, CTC_KERNELS)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_epoch(trainer, batch):
+    """MESH_STEPS steps of trainer.run_epoch on `batch`, the counters
+    zeroed just before and read just after -> (s a step, report,
+    launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    report = trainer.run_epoch(iter([dict(batch)] * MESH_STEPS), True,
+                               LEARN_RATE)
+    torch.cuda.synchronize()
+    s = (time.perf_counter() - t0) / MESH_STEPS
+    return s, report, {k: v for k, v in counters().items()
+                       if k != "dedup_prune"}
+
+
+def _params_equal(a, b) -> bool:
+    import torch
+    from eesen_tpu_torch.training.optim import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def mesh_world_of_one(dev, graphs, state):
+    """(i) Trainer(mesh=...) over NCCL in a world of one, in this process,
+    against the plain Trainer from the same parameters: an epoch of
+    MESH_STEPS steps each, equal reports and launches; then each trainer's
+    step function chained on the card's batch (plain, mesh, mesh, plain),
+    s a step, and equal parameter bits; the all-reduce of one step's
+    bucket alone; the sharded decoder over phase main's 8 utterances."""
+    import torch
+    from eesen_tpu_torch.decoder.beam import (
+        BeamSearchConfig, DeviceGraph, make_sharded_beam_decoder, traceback,
+    )
+    from eesen_tpu_torch.models.model import AcousticModelConfig
+    from eesen_tpu_torch.parallel.distributed import (
+        init_distributed, psum_,
+    )
+    from eesen_tpu_torch.parallel.mesh import make_mesh
+    from eesen_tpu_torch.recipes.run import posteriors
+    from eesen_tpu_torch.training.optim import ravel
+    from eesen_tpu_torch.training.trainer import Trainer, TrainerConfig
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                     timeout=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh(device=dev)
+        tcfg = TrainerConfig(
+            model=AcousticModelConfig(input_dim=120, cell_dim=320,
+                                      num_layers=4, num_targets=72),
+            optimizer=train_opt(), seed=SEED, report_step=10 ** 6,
+            ter_step=MESH_STEPS)
+        trainers = {"plain": Trainer(tcfg, device=dev),
+                    "mesh": Trainer(tcfg, mesh=mesh)}
+        epochs = {k: mesh_epoch(t, train_batch())
+                  for k, t in trainers.items()}
+        if vars(epochs["plain"][1]) != vars(epochs["mesh"][1]) or \
+                not _params_equal(trainers["plain"].state.params,
+                                  trainers["mesh"].state.params):
+            raise AssertionError(f"reports {vars(epochs['plain'][1])} vs "
+                                 f"{vars(epochs['mesh'][1])}, or the "
+                                 f"parameters differ")
+        launches = epochs["mesh"][2]
+        per_step = {k: v / MESH_STEPS for k, v in launches.items()}
+        if per_step != TRAIN_STEP_LAUNCHES or epochs["plain"][2] != launches:
+            raise AssertionError(f"launches: plain {epochs['plain'][2]}, "
+                                 f"mesh {launches}")
+        state["mesh_launches"] = launches
+        # the two step functions alone, chained on the card's batch
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train_batch().items()}
+        step_s = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            t = trainers[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                t.state, _ = t.train_step(t.state, batch, None, LEARN_RATE)
+            torch.cuda.synchronize()
+            step_s[name].append((time.perf_counter() - t0) / TRAIN_STEPS)
+        if not _params_equal(trainers["plain"].state.params,
+                             trainers["mesh"].state.params):
+            raise AssertionError("mesh trainer's parameters differ")
+        meshed = trainers["mesh"]
+        bucket = torch.zeros(ravel(meshed.state.params).numel() + 2,
+                             device=dev)
+        allreduce_ms, _ = _wall_ms(lambda: psum_(bucket, mesh), MESH_REPS)
+        # the job-sharded decode of phase main's utterances
+        g = graphs["packed"][0]
+        dec = make_sharded_beam_decoder(g, BeamSearchConfig(**DECODE), mesh)
+        dg = DeviceGraph.put(g, device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        lp = posteriors(state["params"], state["cfg"], state["arr"],
+                        state["lens"], state["log_priors"], dev)
+        res = traceback(dec(lp, state["lens"], dg), state["lens"],
+                        g.final_weight)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launched = counters()
+        state["mesh_decode_launches"] = {
+            k: launched[k] for k in ("lstm_fwd", "dedup_prune")}
+        _results_equal("sharded decode (world 1)", res, state["hyps"],
+                       COST_RTOL)
+        if min(state["mesh_decode_launches"].values()) == 0:
+            raise AssertionError(f"decode launches {launched}")
+    finally:
+        torch.distributed.destroy_process_group()
+    s_mesh = statistics.mean(step_s["mesh"])
+    return {"backend": "nccl", "world": 1, "batch": TRAIN_B,
+            "frames": TRAIN_T, "labels": TRAIN_L, "steps": MESH_STEPS,
+            "equal_bits": True, "launches": launches,
+            "launches_per_step": per_step,
+            "epoch_s_per_step": {k: e[0] for k, e in epochs.items()},
+            "chained_steps": TRAIN_STEPS,
+            "s_per_step_plain": step_s["plain"],
+            "s_per_step_mesh": step_s["mesh"],
+            "mesh_over_plain": s_mesh / statistics.mean(step_s["plain"]),
+            "allreduce_ms": allreduce_ms, "allreduce_floats": bucket.numel(),
+            "allreduce_share": allreduce_ms / 1e3 / s_mesh,
+            "decode_s": decode_s,
+            "decode_launches": state["mesh_decode_launches"],
+            "decode_words": [len(w) for w, _ in res]}
+
+
+def mesh_two_ranks(dev, graphs, state):
+    """(ii) Two ranks on the one card over gloo, spawned from this script
+    (`--mesh-rank`): MESH_STEPS steps of 2 x MESH_RANK_ROWS rows in f32
+    held against this process's step over the same rows (loss and
+    parameters at MESH_RTOL / MESH_ATOL, the ranks' parameters equal
+    bits), and the sharded decode of phase main's utterances, 4 a rank:
+    phase main's words, costs within COST_RTOL."""
+    import pickle
+    import shutil
+
+    import torch
+    from eesen_tpu_torch.training.optim import ravel
+    from eesen_tpu_torch.training.trainer import make_train_step
+
+    work = os.path.join(ROOT, "tmp", "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        cfg, st, tx, batch = train_setup(dev, compute_dtype=torch.float32,
+                                         state_bf16=False)
+        rows = {k: v[:MESH_RANKS * MESH_RANK_ROWS] for k, v in batch.items()}
+        step = make_train_step(cfg, tx)
+        losses = []
+        for _ in range(MESH_STEPS):
+            st, m = step(st, rows, None, LEARN_RATE)
+            losses.append(float(m["loss"]))
+        want = ravel(st.params).cpu()
+        with open(os.path.join(work, "graph.pkl"), "wb") as f:
+            pickle.dump(graphs["packed"][0], f)
+        np.savez(os.path.join(work, "main.npz"), arr=state["arr"],
+                 lens=state["lens"])
+        port = str(free_port())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+                     [sys.executable, os.path.abspath(__file__),
+                      "--mesh-rank", str(r), port, work, str(dev)],
+                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                     text=True, cwd=ROOT)
+                 for r in range(MESH_RANKS)]
+        try:
+            logs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        spawn_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                     f"{log[-4000:]}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False)
+                 for r in range(MESH_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not torch.equal(ranks[0]["params"], ranks[1]["params"]):
+        raise AssertionError("the ranks' parameters differ")
+    out = {"backend": "gloo", "world": MESH_RANKS, "rows_per_rank":
+           MESH_RANK_ROWS, "frames": TRAIN_T, "labels": TRAIN_L,
+           "compute_dtype": "float32", "steps": MESH_STEPS,
+           "losses_single": losses, "spawn_s": spawn_s, "ranks": []}
+    for r, o in enumerate(ranks):
+        param_err = float((o["params"] - want).abs().max())
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(o["losses"],
+                                                           losses))
+        if not (torch.allclose(o["params"], want, rtol=MESH_RTOL,
+                               atol=MESH_ATOL) and loss_err <= MESH_RTOL):
+            raise AssertionError(f"rank {r}: losses {o['losses']} vs "
+                                 f"{losses}, parameters off by {param_err}")
+        per_step = {k: v / MESH_STEPS for k, v in o["train_launches"].items()
+                    if k != "dedup_prune"}
+        if per_step != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"rank {r} launches per step {per_step}")
+        _results_equal(f"sharded decode, rank {r}", o["decode"],
+                       state["hyps"], COST_RTOL)
+        dl = {k: o["decode_launches"][k] for k in ("lstm_fwd", "dedup_prune")}
+        if min(dl.values()) == 0:
+            raise AssertionError(f"rank {r} decode launches {dl}")
+        s_step = statistics.median(o["step_s"])
+        out["ranks"].append({
+            "losses": o["losses"], "loss_rel_err": loss_err,
+            "param_max_abs_err": param_err, "step_s": o["step_s"],
+            "s_per_step": s_step, "allreduce_ms": o["allreduce_ms"],
+            "allreduce_share": o["allreduce_ms"] / 1e3 / s_step,
+            "train_launches": o["train_launches"],
+            "decode_s": o["decode_s"], "decode_launches": dl})
+    state["mesh_rank_launches"] = [r["train_launches"] for r in out["ranks"]]
+    state["mesh_rank_decode_launches"] = [r["decode_launches"]
+                                          for r in out["ranks"]]
+    out.update(rtol=MESH_RTOL, atol=MESH_ATOL, equal_bits_across_ranks=True)
+    return out
+
+
+def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
+    """One rank of mesh_two_ranks on `device`: its rows of the f32
+    training batch, then its 4 utterances' posteriors and search; writes
+    rank<r>.pt."""
+    import pickle
+
+    import torch
+    from eesen_tpu_torch.decoder.beam import (
+        BeamSearchConfig, DeviceGraph, make_sharded_beam_decoder, traceback,
+    )
+    from eesen_tpu_torch.ops import build
+    from eesen_tpu_torch.parallel.distributed import (
+        all_gather, init_distributed, psum_,
+    )
+    from eesen_tpu_torch.parallel.mesh import make_mesh
+    from eesen_tpu_torch.parallel.sharding import (
+        local_rows, shard_batch, shard_state,
+    )
+    from eesen_tpu_torch.recipes.run import posteriors
+    from eesen_tpu_torch.training.optim import ravel
+    from eesen_tpu_torch.training.trainer import make_shard_map_train_step
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        build.load()
+    # NCCL refuses two ranks on one GPU: gloo, on the card's tensors
+    init_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank, backend="gloo",
+                     timeout=MESH_TIMEOUT_S)
+    try:
+        mesh = make_mesh(device=dev)
+        cfg, st, tx, batch = train_setup(dev, compute_dtype=torch.float32,
+                                         state_bf16=False)
+        st = shard_state(st, mesh)
+        rows = shard_batch({k: v[:MESH_RANKS * MESH_RANK_ROWS]
+                            for k, v in batch.items()}, mesh)
+        step = make_shard_map_train_step(cfg, tx, mesh)
+        losses, step_s = [], []
+        reset_counters()
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, rows, None, LEARN_RATE)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        train_launches = counters()
+        params = ravel(st.params)
+        bucket = torch.zeros(params.numel() + 2, device=dev)
+        allreduce_ms, _ = _wall_ms(lambda: psum_(bucket, mesh), MESH_REPS)
+        with open(os.path.join(work, "graph.pkl"), "rb") as f:
+            g = pickle.load(f)
+        main = np.load(os.path.join(work, "main.npz"))
+        arr, lens = main["arr"], main["lens"]
+        mcfg, mparams, _, log_priors = model_and_inputs(dev)
+        dec = make_sharded_beam_decoder(g, BeamSearchConfig(**DECODE), mesh)
+        dg = DeviceGraph.put(g, device=dev)
+        lo, hi = local_rows(len(lens), mesh)
+        reset_counters()
+        t0 = time.perf_counter()
+        lp = all_gather(posteriors(mparams, mcfg, arr[lo:hi], lens[lo:hi],
+                                   log_priors, dev), mesh)
+        res = traceback(dec(lp, lens, dg), lens, g.final_weight)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        torch.save({"losses": losses, "step_s": step_s,
+                    "params": params.cpu(), "allreduce_ms": allreduce_ms,
+                    "train_launches": train_launches, "decode": res,
+                    "decode_s": decode_s, "decode_launches": counters()},
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh(dev, graphs, state):
+    return {"world_of_one": mesh_world_of_one(dev, graphs, state),
+            "two_ranks": mesh_two_ranks(dev, graphs, state)}
 
 
 def _nbytes(tensors) -> int:
@@ -2820,6 +3163,21 @@ def _recipe_protos(run):
 
 
 def kernels_report(state, timing):
+    def mesh_launches(name):
+        """A kernel's launches on the mesh path (phase mesh): training in
+        a world of one (3 steps) and on each of the two ranks; the
+        sharded decode likewise."""
+        out = {}
+        if name != "dedup_prune":
+            out["mesh_train_launches"] = state["mesh_launches"][name]
+            out["mesh_rank_train_launches"] = [
+                r[name] for r in state["mesh_rank_launches"]]
+        if name in ("lstm_fwd", "dedup_prune"):
+            out["mesh_decode_launches"] = state["mesh_decode_launches"][name]
+            out["mesh_rank_decode_launches"] = [
+                r[name] for r in state["mesh_rank_decode_launches"]]
+        return out
+
     lt = timing["lstm_fwd"]["D640"]
     ltt = timing["lstm_fwd_train"]["D640"]
     dt = timing["dedup_prune"]["m14336"]
@@ -2853,6 +3211,7 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/ctc_alpha_beta.cu",
          "replaces": f"eesen_tpu/ops/ctc_pallas.py:{line}",
          "launches": tl[f"ctc_{w}"], "path": train_path,
+         **mesh_launches(f"ctc_{w}"),
          "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
          "recipe_train_launches": rl["train"][f"ctc_{w}"],
          "max_abs_err": state["ctc"]["max_abs_err"][w],
@@ -2869,7 +3228,7 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "eesen_tpu/ops/lstm_pallas.py:323",
          "launches": state["launches"]["lstm_fwd"], "path": "serve",
-         "train_launches": tl["lstm_fwd"],
+         "train_launches": tl["lstm_fwd"], **mesh_launches("lstm_fwd"),
          "max_abs_err": max(state["lstm"]["max_abs_err"].values()),
          "ms": lt["ms"], "plain_ms": lt["plain_ms"],
          "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
@@ -2897,6 +3256,7 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "eesen_tpu/ops/lstm_pallas.py:379",
          "launches": tl["lstm_bwd"], "path": train_path,
+         **mesh_launches("lstm_bwd"),
          "max_abs_err": max(state["lstm_bwd"]["max_abs_err"].values()),
          "ms": bt["ms"], "plain_ms": bt["plain_ms"],
          "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
@@ -2914,6 +3274,7 @@ def kernels_report(state, timing):
          "source": "eesen_tpu_torch/csrc/dedup_prune.cu",
          "replaces": "eesen_tpu/ops/beam_pallas.py:110",
          "launches": state["launches"]["dedup_prune"],
+         **mesh_launches("dedup_prune"),
          "skip_launches": state["skip_launches"]["dedup_prune"],
          "skip_run_search_launches":
              state["skip_launches"]["run_search"]["dedup_prune"],
@@ -2981,6 +3342,7 @@ def run(dev) -> bool:
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)
         phase("train", phase_train, dev, state)
+        phase("mesh", phase_mesh, dev, graphs, state)
         phase("lstm_v1", phase_lstm_v1, dev, state)
         phase("libri", phase_libri, dev, state)
         timing = phase("timing", phase_timing, dev)
@@ -2991,6 +3353,8 @@ def run(dev) -> bool:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-rank"]:          # spawned by phase mesh
+        return mesh_rank(int(sys.argv[2]), *sys.argv[3:6])
     try:
         import torch
         import eesen_tpu_torch  # noqa: F401  (also turns TF32 off)

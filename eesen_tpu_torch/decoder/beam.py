@@ -48,6 +48,9 @@ from eesen_tpu_torch.decoder.frame_skip import compact_blank_frames
 from eesen_tpu_torch.decoder.graph_compile import CompiledGraph
 from eesen_tpu_torch.models.model import as_tensor, check_device
 from eesen_tpu_torch.ops import beam_cuda
+from eesen_tpu_torch.parallel.distributed import all_gather
+from eesen_tpu_torch.parallel.mesh import Mesh
+from eesen_tpu_torch.parallel.sharding import local_rows
 
 INF = float("inf")
 MAX_OLABELS_PER_FRAME = 2   # words emitted by one frame's arc+eps chain
@@ -572,6 +575,44 @@ def make_beam_decoder(
 
     if _internals:
         return init_chunk, decode_chunk
+    return decode
+
+
+def make_sharded_beam_decoder(
+    graph: CompiledGraph, cfg: BeamSearchConfig, mesh: Mesh,
+    axis: str = "data",
+):
+    """Job-sharded decode over the mesh's `data` axis, the graph on every
+    rank (the reference's nj job shards, steps/decode_ctc_lat.sh:99-104).
+
+    Returns fn(loglikes [B, T, V], lengths [B], dg) -> BeamOutputs of the
+    whole batch, on every rank, as the JAX function's global arrays are.
+    Each rank searches its block of B / (data size) rows with
+    make_beam_decoder, with no communication during the search; the
+    outputs are then all-gathered on their batch axis (dim 1 of the
+    [T, B, K(, L)] fields, dim 0 of init_olabels and overflow).  B must
+    divide evenly."""
+    if axis != "data":
+        raise ValueError(f"the mesh shards batches over 'data', not {axis!r}")
+    base = make_beam_decoder(graph, cfg)
+
+    def decode(loglikes, lengths, dg: DeviceGraph) -> BeamOutputs:
+        loglikes = as_tensor(loglikes, torch.float32)
+        lengths = as_tensor(lengths, torch.int64)
+        lo, hi = local_rows(loglikes.shape[0], mesh)
+        out = base(loglikes[lo:hi], lengths[lo:hi], dg)
+
+        def gather(x, dim):
+            return all_gather(x, mesh, dim)
+
+        return BeamOutputs(
+            gather(out.states, 1), gather(out.scores, 1),
+            gather(out.parent, 1), gather(out.olabels, 1),
+            gather(out.init_olabels, 0), gather(out.overflow, 0),
+            # gloo gathers no bool
+            gather(out.lat_mask.to(torch.uint8), 1).bool(),
+        )
+
     return decode
 
 

@@ -32,8 +32,9 @@ blank-dominated runs of the prior-divided posteriors are merged first
 Streaming is models/streaming.py; greedy decoding decoder/greedy.py.
 The lattice stages (`decode_lattices`, `score_sweep`) search on the
 device and build, prune and determinize the lattices on the host
-(decoder/{lattice,clat}).  Not ported yet: the mesh path
-(`RecipeRun(mesh=...)`).
+(decoder/{lattice,clat}).  `RecipeRun(mesh=...)` trains data-parallel
+(parallel/, training/trainer.Trainer); every rank runs the recipe in
+the same work_dir, and the files it writes are renamed into place.
 """
 
 from __future__ import annotations
@@ -182,14 +183,24 @@ def decode(
     return hyps
 
 
+def _replace_into(path: str, write) -> None:
+    """write(f) into a private file renamed onto `path`, so that ranks of a
+    mesh sharing a work_dir never read a half-written file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
+
+
 # utterances per batched fbank call (the JAX package's batch)
 FBANK_BATCH = 64
 
 
 class RecipeRun:
     """One corpus run under `work_dir`: each stage is a method, so partial
-    runs and resumes are natural.  Everything runs on `device`; only
-    `mesh=None` is ported (the mesh path is ROADMAP.md queue 1, item 6)."""
+    runs and resumes are natural.  Everything runs on `device`; a `mesh`
+    (parallel.make_mesh) reaches the Trainer in `train`, and nothing else,
+    as in the JAX package (pass device=mesh.device with it)."""
 
     def __init__(
         self,
@@ -200,11 +211,7 @@ class RecipeRun:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh path is not ported yet (ROADMAP.md queue 1, "
-                "item 6)"
-            )
+        self.mesh = mesh
         self.device = check_device(device)
         self.cfg = cfg
         self.work_dir = work_dir
@@ -230,8 +237,7 @@ class RecipeRun:
             self.lang = compile_lang(
                 self.lexicon, self.units, dict_type=self.cfg.dict_type
             )
-            with open(path, "wb") as f:
-                pickle.dump(self.lang, f)
+            _replace_into(path, lambda f: pickle.dump(self.lang, f))
         return self.lang
 
     def prep_labels(
@@ -360,7 +366,7 @@ class RecipeRun:
             newbob=self.cfg.newbob,
             checkpoint_dir=os.path.join(self.work_dir, "ckpt"),
         )
-        self.trainer = Trainer(tcfg, device=self.device)
+        self.trainer = Trainer(tcfg, device=self.device, mesh=self.mesh)
 
         def mk(feats, labels):
             return [
@@ -401,12 +407,11 @@ class RecipeRun:
         self.params = self.trainer.state.params
         self.model_cfg = model_cfg
         params = self.params
-        torch.save(
-            {"params": tree_unflatten(
-                params, [p.cpu() for p in tree_leaves(params)]),
-             "config": model_cfg, "log_priors": self.log_priors},
-            os.path.join(self.work_dir, "model.pkl"),
-        )
+        saved = {"params": tree_unflatten(
+                     params, [p.cpu() for p in tree_leaves(params)]),
+                 "config": model_cfg, "log_priors": self.log_priors}
+        _replace_into(os.path.join(self.work_dir, "model.pkl"),
+                      lambda f: torch.save(saved, f))
         return history
 
     def load_model(self, path: Optional[str] = None) -> None:
@@ -433,8 +438,7 @@ class RecipeRun:
         self.graph = build_full_compiled(
             self.lang.t_fst, self.lang.l_fst, g, build_closure=True
         )
-        with open(path, "wb") as f:
-            pickle.dump(self.graph, f)
+        _replace_into(path, lambda f: pickle.dump(self.graph, f))
         return self.graph
 
     def _decode_params(self):

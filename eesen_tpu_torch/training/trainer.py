@@ -10,12 +10,17 @@ schedule, early stop and resume (steps/train_ctc_parallel.sh:132-190):
   the LSTM and CTC kernels, clip, update.
 - The greedy token-accuracy monitor (src/net/ctc-loss.cc:235 ErrorRateMSeq)
   is a device argmax + host edit distance, as in the reference.
+- `make_shard_map_train_step` is the data-parallel step of the mesh path
+  (parallel/): each rank runs the same kernels on its rows, and one
+  all-reduce a step sums the gradients over `data` (the JAX package's
+  `psum` in `shard_map`; the reference averaged models through files,
+  src/net/communicator.h).
 - `Trainer.fit` runs the newbob epoch loop, with checkpoints written by
-  `torch.save` (the JAX package uses orbax) and the same `sched.json`.
+  `torch.save` (the JAX package uses orbax) and the same `sched.json`;
+  under a mesh only rank 0 writes them.
 
-Everything runs on `device`, "cuda" unless the caller asks for "cpu".  The
-multi-device step (`make_shard_map_train_step`, the mesh path) is not
-ported yet.
+Everything runs on `device`, "cuda" unless the caller asks for "cpu", or
+on the mesh's device.
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ from eesen_tpu_torch.models.model import (
 )
 from eesen_tpu_torch.ops.ce import ce_loss
 from eesen_tpu_torch.ops.ctc import ctc_loss
+from eesen_tpu_torch.parallel.distributed import all_gather, barrier, psum_
+from eesen_tpu_torch.parallel.mesh import Mesh
+from eesen_tpu_torch.parallel.sharding import shard_batch, shard_state
 from eesen_tpu_torch.training.metrics import EpochReport, token_error_counts
 from eesen_tpu_torch.training.optim import (
     OptimizerConfig, Optimizer, OptState, apply_updates, make_optimizer,
-    tree_leaves, tree_unflatten,
+    tree_leaves, tree_unflatten, unravel,
 )
 from eesen_tpu_torch.training.schedule import NewbobConfig, NewbobScheduler
 from eesen_tpu_torch.utils.logging import get_logger
@@ -128,33 +136,106 @@ def make_train_step(
             params, batch, model_cfg, rng, True, loss_kind, with_argmax
         )
         grads = torch.autograd.grad(loss_val, leaves)
-        # the epoch's learning rate (newbob decides it between epochs)
-        opt_state = state.opt_state._replace(hyperparams=dict(
-            state.opt_state.hyperparams, learning_rate=float(learn_rate)
-        ))
-        updates, new_opt_state = tx.update(
-            tree_unflatten(state.params, list(grads)), opt_state,
-            state.params,
-        )
-        new_params = apply_updates(state.params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss_val.detach()
-        return TrainState(new_params, new_opt_state, state.step + 1), metrics
+        return _update(tx, state, tree_unflatten(state.params, list(grads)),
+                       learn_rate), metrics
+
+    return train_step
+
+
+def _update(tx: Optimizer, state: TrainState, grads, learn_rate) -> TrainState:
+    """Clip and update with the epoch's learning rate (newbob decides it
+    between epochs): the state after one step."""
+    opt_state = state.opt_state._replace(hyperparams=dict(
+        state.opt_state.hyperparams, learning_rate=float(learn_rate)
+    ))
+    updates, new_opt_state = tx.update(grads, opt_state, state.params)
+    return TrainState(apply_updates(state.params, updates), new_opt_state,
+                      state.step + 1)
+
+
+def _global_counts(metrics, mesh: Mesh) -> None:
+    """frames (and CE's `correct`) summed over `data`, one all-reduce."""
+    keys = [k for k in ("frames", "correct") if k in metrics]
+    counts = psum_(torch.stack([metrics[k].to(torch.int64) for k in keys]),
+                   mesh)
+    metrics.update(zip(keys, counts.unbind()))
+
+
+def make_shard_map_train_step(
+    model_cfg: AcousticModelConfig,
+    tx: Optimizer,
+    mesh: Mesh,
+    loss: str = "ctc",
+    with_argmax: bool = False,
+) -> Callable:
+    """The data-parallel train step (the JAX package's shard_map step,
+    `local_step`): train_step(state, batch, rng, learn_rate,
+    with_argmax=None) -> (state, metrics) on each rank, with `batch` this
+    rank's rows (`parallel.shard_batch`) and `state` replicated
+    (`parallel.shard_state`).
+
+    - The objective is normalized by the GLOBAL frame count (frames, and
+      CE's `correct`, are all-reduced before the division).
+    - The gradients are summed over `data` in one all-reduce of one flat
+      bucket, which also carries the loss and the objective sum; the
+      optimizer then clips and updates the summed gradient, so every rank
+      applies the same update and the parameters stay replicated.
+    - `argmax` is gathered over `data`, so the metrics are those of the
+      whole batch on every rank.
+    - `rng` is the same generator on every rank, as the JAX step's key is
+      replicated: rank r's rows get rank 0's dropout masks for its local
+      shape, so a step with dropout is not the single-process step over
+      all the rows."""
+    loss_kind = loss
+    argmax_default = with_argmax
+
+    def train_step(state: TrainState, batch, rng, learn_rate,
+                   with_argmax: Optional[bool] = None):
+        if with_argmax is None:
+            with_argmax = argmax_default
+        leaves = [p.detach().requires_grad_() for p in
+                  tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        obj, metrics = _obj_and_metrics(
+            params, batch, model_cfg, rng, True, loss_kind, with_argmax
+        )
+        _global_counts(metrics, mesh)
+        frames = torch.clamp(metrics["frames"], min=1).to(obj.dtype)
+        loss_val = obj / frames
+        grads = torch.autograd.grad(loss_val, leaves)
+        bucket = torch.cat([g.reshape(-1) for g in grads] + [
+            loss_val.detach().reshape(1).to(grads[0].dtype),
+            obj.detach().reshape(1).to(grads[0].dtype)])
+        psum_(bucket, mesh)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=bucket[-2], obj_sum=bucket[-1])
+        if "argmax" in metrics:
+            metrics["argmax"] = all_gather(metrics["argmax"], mesh)
+        return _update(tx, state, unravel(state.params, bucket[:-2]),
+                       learn_rate), metrics
 
     return train_step
 
 
 def make_eval_step(
     model_cfg: AcousticModelConfig, loss: str = "ctc",
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """Cross-validation step (no backprop): the reference's
-    --cross-validate=true mode (train-ctc-parallel.cc:116-119,206)."""
+    --cross-validate=true mode (train-ctc-parallel.cc:116-119,206).  Under
+    a mesh the metrics are summed (argmax gathered) over `data`."""
 
     def eval_step(params, batch):
         with torch.no_grad():
             _, metrics = _loss_and_metrics(
                 params, batch, model_cfg, None, False, loss
             )
+        if mesh is not None:
+            _global_counts(metrics, mesh)
+            psum_(metrics["obj_sum"], mesh)
+            metrics["argmax"] = all_gather(metrics["argmax"], mesh)
         return metrics
 
     return eval_step
@@ -181,17 +262,32 @@ class Trainer:
     """Epoch-level driver: newbob LR schedule, CV early stop, checkpointing.
     Parameters are drawn from torch.Generator().manual_seed(cfg.seed); each
     train step gets its own generator for dropout, split from `self.rng`
-    (seeded from cfg.seed too), as the JAX trainer splits its key."""
+    (seeded from cfg.seed too), as the JAX trainer splits its key.
 
-    def __init__(self, cfg: TrainerConfig, device="cuda"):
+    With a `mesh` (parallel.make_mesh) the trainer runs on the mesh's
+    device (not `device`): the state is replicated from rank 0, each step
+    is make_shard_map_train_step on this rank's rows of every global
+    batch, and the epoch reports, so the newbob decisions, are the same
+    on every rank.  Only rank 0 writes checkpoints."""
+
+    def __init__(self, cfg: TrainerConfig, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = check_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else check_device(
+            device)
         self.state, self.tx = create_train_state(
             torch.Generator().manual_seed(cfg.seed), cfg.model,
             cfg.optimizer, self.device,
         )
-        self.train_step = make_train_step(cfg.model, self.tx, loss=cfg.loss)
-        self.eval_step = make_eval_step(cfg.model, loss=cfg.loss)
+        if mesh is not None:
+            self.state = shard_state(self.state, mesh)
+            self.train_step = make_shard_map_train_step(
+                cfg.model, self.tx, mesh, loss=cfg.loss)
+        else:
+            self.train_step = make_train_step(cfg.model, self.tx,
+                                              loss=cfg.loss)
+        self.eval_step = make_eval_step(cfg.model, loss=cfg.loss, mesh=mesh)
         self.sched = NewbobScheduler(cfg.newbob)
         self.rng = split_generator(torch.Generator().manual_seed(cfg.seed))
 
@@ -235,7 +331,8 @@ class Trainer:
 
         for batch in batches:
             batch.pop("keys", None)
-            dev_batch = self._to_device(batch)
+            dev_batch = self._to_device(
+                batch if self.mesh is None else shard_batch(batch, self.mesh))
             if train:
                 # the argmax only on TER batches; CE needs none at all
                 want_ter_now = (n + 1) % ter_step == 0
@@ -345,7 +442,14 @@ class Trainer:
     def save_checkpoint(self, epoch: int) -> None:
         """epoch_<N>/state.pt (parameters, optimizer state, step) and
         sched.json, each written under a private name and renamed into
-        place."""
+        place.  Under a mesh rank 0 writes them and every rank waits for
+        it, so that any rank can restore them next."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write_checkpoint(epoch)
+        if self.mesh is not None:
+            barrier(self.mesh)
+
+    def _write_checkpoint(self, epoch: int) -> None:
         path = self._ckpt_path(epoch)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         st = self.state

@@ -298,8 +298,8 @@ def test_train_one_epoch_matches_jax(prepared, tmp_path, monkeypatch):
         model=jmcfg, optimizer=jcfg.optimizer, newbob=jcfg.newbob)).state
 
     class FromJax(ttrainer.Trainer):
-        def __init__(self, cfg, device="cuda"):
-            super().__init__(cfg, device)
+        def __init__(self, cfg, device="cuda", mesh=None):
+            super().__init__(cfg, device, mesh)
             self.state = carried_state(jinit)
 
     monkeypatch.setattr(trun, "Trainer", FromJax)
@@ -335,11 +335,33 @@ def test_train_one_epoch_matches_jax(prepared, tmp_path, monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_unported_stages_raise(tmp_path):
+def test_recipe_run_trains_with_a_mesh(prepared, tmp_path):
+    """RecipeRun(mesh=...) builds and trains: in a world of one process
+    the same history and parameters, bit for bit, as mesh=None (two ranks:
+    tests/test_torch_distributed.py)."""
+    from eesen_tpu_torch.parallel.mesh import make_mesh
+
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trun.RecipeRun(tcfg, str(tmp_path), LEXICON, PHONES, mesh=object(),
-                       device="cpu")
+    keys = sorted(prepared["tfeats"])
+
+    def split(d, ks):
+        return {k: d[k] for k in ks}
+
+    parts = [split(prepared[name], ks) for ks in (keys[:6], keys[6:])
+             for name in ("tfeats", "tlabels")]
+    runs = [trun.RecipeRun(tcfg, str(tmp_path / name), LEXICON, PHONES,
+                           mesh=mesh, device="cpu")
+            for name, mesh in (("plain", None),
+                               ("mesh", make_mesh(device="cpu")))]
+    hists = []
+    for run in runs:
+        run.lang = prepared["tr"].lang
+        hists.append(run.train(*parts))
+    assert hists[0] == hists[1] and sorted(hists[0]) == [1]
+    assert runs[1].trainer.mesh is not None
+    for a, b in zip(jax.tree_util.tree_leaves(runs[0].params),
+                    jax.tree_util.tree_leaves(runs[1].params)):
+        assert torch.equal(a, b)
 
 
 # the JAX recipe test's sweep (tests/test_recipe_e2e.py:149-156)
