@@ -99,6 +99,38 @@ Phases, one JSON line each:
           bit-equal posteriors of the read-back model on one test chunk;
           (ix) emit_nnet_proto -> parse_nnet_proto of every RECIPES model
           and the trained one.
+  cli     the command line (eesen_tpu_torch.tools.cli.main in this
+          process, --device cuda, files under tmp/chip_smoke_cli; the
+          counters zeroed just before each command and read just after):
+          (i) net-output-extract of main's 8 utterances (its model saved
+          as the port's model file, its priors as class frame counts), one
+          a call at B=1: 8 lstm_fwd launches a call, lp within LP_ATOL of
+          main's batched lp; the B=1 forward's ms per utterance beside
+          the B=8 forward's; (ii) latgen on main's lp and the packed TLG
+          pickled by the port (beam 16, max_active 512, acwt 0.9, batch
+          8): main's words, costs within COST_RTOL, kernel 2 launched;
+          (iii) on the search phase's converged posteriors, latgen
+          --blank-skip 0.98, --streaming --chunk-frames 16 and
+          --lattice-ark then lattice-best-path at acwt 0.9: the offline
+          latgen's words; (iv) decode-faster (the dense Viterbi) there:
+          each cost no higher than the beam search's (within COST_RTOL),
+          how many of the 8 give its words, ms per frame beside the beam
+          search's; on the 68,364-state TLG the CLI_DENSE_CPU_UTTS
+          shortest on the card and with --device cpu: equal words, costs
+          within COST_RTOL; (v) align of main's 8 with seeded labels: 8
+          lstm_fwd a call, ctc_align of the same f32 lp on the card and
+          the CPU equal, the command's segments those of the card; (vi)
+          train on the recipe phase's 48 / 8 CMVN'd features and labels
+          (the recipe's 4 x 320, 41 targets, its batch, RECIPE_MAX_ITERS
+          epochs): per step 8 / 8 / 1 / 1 launches of lstm_fwd /
+          lstm_bwd / ctc_alpha / ctc_beta (CV steps 8 / 0 / 1 / 1),
+          finite objectives; model-info; net-copy to .nnet gives
+          write_eesen_nnet's bytes; net-output-extract -> latgen (the
+          recipe's decode settings and graph) -> compute-wer on the 8
+          test utterances, the WER recorded; (vii) compute-fbank-feats
+          (40 bins) on 8 of the frontend phase's waves, card against
+          --device cpu within FE_TOL above FE_MEL_FLOOR.  Each command's
+          seconds and launches.
   lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
           mixed lengths with a length-0 row, state_bf16 on and off): first
           kernel lstm_fwd with residuals vs its plain version (m and c at
@@ -525,7 +557,7 @@ def model_and_inputs(dev):
     feats = {f"utt{i}": rng.standard_normal((n, 120)).astype(np.float32)
              for i, n in enumerate(LENGTHS)}
     counts = rng.integers(1, 1000, cfg.num_targets).astype(np.float64)
-    return cfg, params, feats, compute_log_priors(counts)
+    return cfg, params, feats, compute_log_priors(counts), counts
 
 
 def _to_cpu(params):
@@ -569,7 +601,7 @@ def phase_main(dev, graphs, state):
     from eesen_tpu_torch.recipes.run import posteriors, run_search
 
     g = graphs["packed"][0]
-    cfg, params, feats, log_priors = model_and_inputs(dev)
+    cfg, params, feats, log_priors, counts = model_and_inputs(dev)
     bcfg = BeamSearchConfig(**DECODE)
     reset_counters()
     t0 = time.perf_counter()
@@ -604,7 +636,7 @@ def phase_main(dev, graphs, state):
     if not lp_err <= LP_ATOL:
         raise AssertionError(f"log-posteriors differ by {lp_err}")
     state.update(params=params, cfg=cfg, arr=arr, lens=lens,
-                 log_priors=log_priors, lp=lp,
+                 log_priors=log_priors, counts=counts, lp=lp,
                  hyps=[hyps[k] for k in chunk])
     return {"utterances": len(hyps), "frames": int(sum(LENGTHS)),
             "wall_s": wall, "launches": launches, "overflow": overflow,
@@ -1965,7 +1997,7 @@ def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
             g = pickle.load(f)
         main = np.load(os.path.join(work, "main.npz"))
         arr, lens = main["arr"], main["lens"]
-        mcfg, mparams, _, log_priors = model_and_inputs(dev)
+        mcfg, mparams, _, log_priors, _ = model_and_inputs(dev)
         dec = make_sharded_beam_decoder(g, BeamSearchConfig(**DECODE), mesh)
         dg = DeviceGraph.put(g, device=dev)
         lo, hi = local_rows(len(lens), mesh)
@@ -2970,6 +3002,9 @@ def _recipe(dev, state, corpus, cfg, work):
     stages["nnet_roundtrip"] = time.perf_counter() - t0
     # (ix) nnet.proto text of every recipe's model and back
     proto_res = _recipe_protos(run)
+    state["recipe_data"] = {"feats": feats, "labels": labels,
+                            "split": split, "text": text,
+                            "graph": run.graph, "words": run.lang.words}
     state["recipe_launches"] = {"train": train_launches,
                                 "decode": decode_launches,
                                 "lattices": sweep_res.pop("launches")}
@@ -3162,6 +3197,493 @@ def _recipe_protos(run):
     return {"models": sorted(cfgs), "lines": lines}
 
 
+# --------------------------------------------------------------------------
+# phase cli: the command line (eesen_tpu_torch/tools/cli.py) in-process
+# --------------------------------------------------------------------------
+
+# (v) seeded label sequences for `align`: one label per CLI_FRAMES_PER_LABEL
+# frames of each utterance
+CLI_FRAMES_PER_LABEL = 6
+# (vi) the recipe's batch (recipes/config.py wsj_phn) and newbob cut
+CLI_TRAIN = ["--num-targets", "41", "--cell-dim", "320", "--num-layers", "4",
+             "--num-sequence", "10", "--frame-limit", "25000",
+             "--learn-rate", "4e-5", "--max-iters", str(RECIPE_MAX_ITERS),
+             "--report-step", "1"]
+# (iv) the 68,364-state check runs the dense decoder's plain torch ops on
+# the CPU too: the two shortest utterances
+CLI_DENSE_CPU_UTTS = 2
+
+
+class CliRunner:
+    """cli.main in this process, under `work`: the launch counters zeroed
+    just before each command and read just after (synchronized); each
+    command's seconds and launches kept under its label."""
+
+    def __init__(self, work: str):
+        self.work = work
+        self.seconds, self.launches = {}, {}
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.work, name)
+
+    def __call__(self, label: str, *argv, device: str = "cuda") -> str:
+        import contextlib
+        import io
+
+        import torch
+        from eesen_tpu_torch.tools import cli
+
+        buf = io.StringIO()
+        reset_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--device", device, *map(str, argv)])
+        torch.cuda.synchronize()
+        self.seconds[label] = time.perf_counter() - t0
+        self.launches[label] = {k: v for k, v in counters().items() if v}
+        if rc != 0:
+            raise AssertionError(f"{label}: exit code {rc}")
+        return buf.getvalue()
+
+
+class _Recorded:
+    """module.name wrapped while in use: each call's arguments, results
+    and seconds (synchronized) are kept."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls, self.results, self.seconds = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.calls.append(args)
+            self.results.extend(res)
+            return res
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _hyp_words(path: str):
+    """{key: [word ids]} of a latgen / decode-faster text output."""
+    with open(path) as f:
+        return {p[0]: [int(w) for w in p[1:]]
+                for p in (line.split() for line in f) if p}
+
+
+def _write_wav16(path: str, samples) -> None:
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.clip(np.round(samples), -32768, 32767).astype(
+            "<i2").tobytes())
+
+
+def phase_cli(dev, graphs, state):
+    import shutil
+
+    work = os.path.join(ROOT, "tmp", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        return _cli(dev, graphs, state, CliRunner(work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _cli(dev, graphs, state, run):
+    """The phase in run.work (removed by phase_cli)."""
+    import pickle
+
+    from eesen_tpu_torch.decoder import beam as tbeam
+    from eesen_tpu_torch.decoder import dense as tdense
+    from eesen_tpu_torch.io.kaldi_io import write_ark
+    from eesen_tpu_torch.tools import cli
+
+    out = {}
+    lens = state["lens"]
+    keys = [f"utt{j}" for j in range(B)]
+    write_ark(run.path("feats.ark"), (
+        (k, state["arr"][j, : lens[j]]) for j, k in enumerate(keys)))
+    model = run.path("main.pt")
+    cli.save_model_blob(model, {"params": state["params"],
+                                "config": state["cfg"]})
+    np.savetxt(run.path("counts"), state["counts"])
+    out["posteriors"] = _cli_posteriors(dev, state, run, keys, model)
+
+    # (ii) latgen on main's lp and the port's pickle of the packed TLG
+    g, lang, lex = graphs["packed"]
+    with open(run.path("tlg.pkl"), "wb") as f:
+        pickle.dump(g, f)
+    lp = state["lp"].float().cpu().numpy()
+    write_ark(run.path("main_lp.ark"), (
+        (k, lp[j, : lens[j]]) for j, k in enumerate(keys)))
+    dec = ["--beam", "16", "--max-active", K, "--acoustic-scale", "0.9",
+           "--batch-size", B]
+    with _Recorded(tbeam, "traceback") as rec:
+        run("latgen", "latgen", *dec, run.path("tlg.pkl"),
+            f"ark:{run.path('main_lp.ark')}", run.path("main_hyp.txt"))
+    _results_equal("latgen vs main", rec.results, state["hyps"], COST_RTOL)
+    words = _hyp_words(run.path("main_hyp.txt"))
+    if [words[k] for k in keys] != [w for w, _ in state["hyps"]]:
+        raise AssertionError("latgen text differs from its best paths")
+    if not run.launches["latgen"].get("dedup_prune"):
+        raise AssertionError(f"latgen launches {run.launches['latgen']}")
+    out["latgen"] = {"same_words_as_main": B, "cost_rtol": COST_RTOL,
+                     "launches": run.launches["latgen"]}
+
+    # (iii) blank-skip, streaming and lattices on converged posteriors
+    ll = search_posteriors(lang, lex)
+    write_ark(run.path("conv.ark"), (
+        (k, ll[j, : lens[j]]) for j, k in enumerate(keys)))
+    conv = f"ark:{run.path('conv.ark')}"
+    with _Recorded(tbeam, "traceback") as beam_rec:
+        run("latgen_converged", "latgen", *dec, run.path("tlg.pkl"), conv,
+            run.path("conv_hyp.txt"))
+    offline = _hyp_words(run.path("conv_hyp.txt"))
+    modes = {"latgen_blank_skip": ["--blank-skip", SKIP_THRESHOLD],
+             "latgen_streaming": ["--streaming", "--chunk-frames", CHUNK],
+             "latgen_lattices": ["--lattice-ark", run.path("lat.ark")]}
+    for label, extra in modes.items():
+        run(label, "latgen", *dec, *extra, run.path("tlg.pkl"), conv,
+            run.path(f"{label}.txt"))
+        if _hyp_words(run.path(f"{label}.txt")) != offline:
+            raise AssertionError(f"{label}: words differ from offline")
+    run("lattice_best_path", "lattice-best-path", run.path("lat.ark"),
+        "--out", run.path("bp.txt"), "--acoustic-scale", "0.9")
+    if _hyp_words(run.path("bp.txt")) != offline:
+        raise AssertionError("lattice-best-path words differ from latgen")
+    frames = int(sum(lens))
+    out["converged"] = {
+        "frames": frames, "same_words": ["blank_skip", "streaming",
+                                         "lattice_best_path"],
+        "ms_per_frame": {k: run.seconds[k] * 1e3 / frames for k in (
+            "latgen_converged", *modes)},
+        "launches": {k: run.launches[k] for k in ("latgen_converged",
+                                                  *modes)}}
+
+    # (iv) decode-faster: exact Viterbi against the beam search
+    out["decode_faster"] = _cli_dense(dev, graphs, run, keys, lens, conv,
+                                      beam_rec, tdense)
+    out["align"] = _cli_align(dev, state, run, keys, model)
+    out["train"] = _cli_train(state, run)
+    out["fbank"] = _cli_fbank(state, run)
+    out["command_seconds"] = run.seconds
+    out["launches"] = run.launches
+    state["cli_launches"] = run.launches
+    return out
+
+
+def _cli_posteriors(dev, state, run, keys, model):
+    """(i) net-output-extract of main's 8 utterances, one a call: 8
+    lstm_fwd launches each, lp within LP_ATOL of main's batched lp; the
+    B=1 forward's ms per utterance beside the B=8 forward's."""
+    import torch
+    from eesen_tpu_torch.io.kaldi_io import read_rspecifier
+    from eesen_tpu_torch.models.priors import subtract_priors
+    from eesen_tpu_torch.recipes.run import posteriors
+    from eesen_tpu_torch.tools import cli
+
+    lens = state["lens"]
+    run("net_output_extract", "net-output-extract",
+        f"--class-frame-counts={run.path('counts')}", model,
+        f"ark:{run.path('feats.ark')}", f"ark:{run.path('post.ark')}")
+    want = {"lstm_fwd": 8 * B}
+    if run.launches["net_output_extract"] != want:
+        raise AssertionError(
+            f"net-output-extract launches {run.launches['net_output_extract']}"
+            f", want {want}")
+    post = dict(read_rspecifier(f"ark:{run.path('post.ark')}"))
+    lp = state["lp"].float().cpu().numpy()
+    err = max(float(np.abs(post[k] - lp[j, : lens[j]]).max())
+              for j, k in enumerate(keys))
+    if not err <= LP_ATOL:
+        raise AssertionError(f"net-output-extract lp differs by {err}")
+    params, cfg, pri = state["params"], state["cfg"], state["log_priors"]
+    x = {k: torch.from_numpy(state["arr"][j, : lens[j]]).to(dev)
+         for j, k in enumerate(keys)}
+    b1 = [_wall_ms(lambda: subtract_priors(cli._log_posteriors(
+        params, cfg, x[k], dev), pri), 3)[0] for k in keys]
+    b8, _ = _wall_ms(lambda: posteriors(params, cfg, state["arr"], lens, pri,
+                                        dev), 3)
+    return {"max_abs_err_vs_main": err, "atol": LP_ATOL,
+            "launches": run.launches["net_output_extract"],
+            "b1_ms_per_utt": b1, "b1_ms_total": sum(b1),
+            "b8_forward_ms": b8, "frames": [int(n) for n in lens]}
+
+
+def _cli_dense(dev, graphs, run, keys, lens, conv, beam_rec, tdense):
+    """(iv) decode-faster on the packed TLG: each cost no higher than the
+    beam search's (exact Viterbi), how many of the 8 give its words, ms
+    per frame; on the 68,364-state TLG the two shortest utterances on the
+    card and on the CPU: equal words, costs within COST_RTOL.
+
+    Both tracebacks fall back to the best partial path (no final weight)
+    where no final state is reached at the last frame
+    (decoder-wrappers.cc:60).  The converged posteriors are cut mid-word
+    at each utterance's length, so the beam can hold no final state at
+    its end while the exact search reaches one on a path the beam
+    pruned, at a higher cost than the beam's partial path.  So a row
+    whose beam reached a final state is held on the final costs, and a
+    row whose beam did not on the best last-frame score without final
+    weights (the dense one no higher than the beam's)."""
+    import pickle
+
+    from eesen_tpu_torch.io.kaldi_io import write_ark
+
+    frames = int(sum(lens))
+    with _Recorded(tdense, "decode_dense") as rec, _Recorded(
+            tdense, "traceback_dense") as trec:
+        run("decode_faster", "decode-faster", "--acoustic-scale", "0.9",
+            "--batch-size", B, run.path("tlg.pkl"), conv,
+            run.path("dense_hyp.txt"))
+    beam = beam_rec.results
+    (b_out, b_lens, fw), = beam_rec.calls
+    b_out = b_out.numpy()
+    (_, d_fin, _, _), = trec.calls
+    d_fin = d_fin.cpu().numpy()
+    beam_final = []
+    for i, ((_, c_d), (_, c_b)) in enumerate(zip(rec.results, beam)):
+        t = int(b_lens[i]) - 1
+        st, sc = b_out.states[t, i], b_out.scores[t, i]
+        final = bool(np.isfinite(np.where(
+            st >= 0, sc + fw[np.maximum(st, 0)], np.inf)).any())
+        beam_final.append(final)
+        got = c_d if final else float(d_fin[i].min())
+        if not got <= c_b + COST_RTOL * abs(c_b):
+            raise AssertionError(
+                f"decode-faster utt {i}: {'final' if final else 'partial'}"
+                f" cost {got} above the beam search's {c_b}")
+    same = sum(w_d == w_b for (w_d, _), (w_b, _) in zip(rec.results, beam))
+    g, lang, lex = graphs["dense"]
+    with open(run.path("tlg68k.pkl"), "wb") as f:
+        pickle.dump(g, f)
+    ll = search_posteriors(lang, lex)
+    few = list(range(B - CLI_DENSE_CPU_UTTS, B))
+    write_ark(run.path("conv68k.ark"), (
+        (keys[j], ll[j, : lens[j]]) for j in few))
+    res = {}
+    for device in ("cuda", "cpu"):
+        with _Recorded(tdense, "decode_dense") as r68:
+            run(f"decode_faster_68k_{device}", "decode-faster",
+                "--acoustic-scale", "0.9", run.path("tlg68k.pkl"),
+                f"ark:{run.path('conv68k.ark')}",
+                run.path(f"dense68k_{device}.txt"), device=device)
+        res[device] = r68.results
+    _results_equal("decode-faster 68k card vs CPU", res["cuda"], res["cpu"],
+                   COST_RTOL)
+    f68 = int(sum(lens[j] for j in few))
+    return {
+        "states": {tag: graphs[tag][0].num_states
+                   for tag in ("packed", "dense")},
+        "cost_le_beam": True, "same_words_as_beam": same,
+        "beam_reached_final": beam_final,
+        "costs": [c for _, c in rec.results],
+        "beam_costs": [c for _, c in beam],
+        "ms_per_frame": run.seconds["decode_faster"] * 1e3 / frames,
+        "device_ms_per_frame": sum(rec.seconds) * 1e3 / frames,
+        "beam_ms_per_frame": run.seconds["latgen_converged"] * 1e3 / frames,
+        "launches": run.launches["decode_faster"],
+        "68k": {"utterances": len(few), "frames": f68,
+                "card_ms_per_frame":
+                    run.seconds["decode_faster_68k_cuda"] * 1e3 / f68,
+                "cpu_ms_per_frame":
+                    run.seconds["decode_faster_68k_cpu"] * 1e3 / f68,
+                "same_words": True, "cost_rtol": COST_RTOL}}
+
+
+def _cli_align(dev, state, run, keys, model):
+    """(v) align of main's 8 utterances with seeded label sequences: 8
+    lstm_fwd a call; ctc_align of the same f32 lp on the card and on the
+    CPU equal, and the command's segments those of the card."""
+    import torch
+    from eesen_tpu_torch.io.kaldi_io import write_ark
+    from eesen_tpu_torch.ops.align import align_to_segments, ctc_align
+    from eesen_tpu_torch.tools import cli
+
+    lens, cfg = state["lens"], state["cfg"]
+    rng = np.random.default_rng(SEED + 15)
+    labels = {k: rng.integers(1, cfg.num_targets, int(lens[j]) //
+                              CLI_FRAMES_PER_LABEL).astype(np.int32)
+              for j, k in enumerate(keys)}
+    write_ark(run.path("labels.ark"), labels.items())
+    run("align", "align", model, f"ark:{run.path('feats.ark')}",
+        f"ark:{run.path('labels.ark')}", run.path("ali.txt"))
+    if run.launches["align"] != {"lstm_fwd": 8 * B}:
+        raise AssertionError(f"align launches {run.launches['align']}")
+    with open(run.path("ali.txt")) as f:
+        lines = {p[0]: p[1:] for p in (line.split() for line in f) if p}
+    segs = 0
+    for j, k in enumerate(keys):
+        x = torch.from_numpy(state["arr"][j, : lens[j]]).to(dev)
+        lp = cli._log_posteriors(state["params"], cfg, x, dev)[None]
+        args = ([int(lens[j])], labels[k][None], [len(labels[k])])
+        card = ctc_align(lp, *args)[0]
+        host = ctc_align(lp.cpu(), *args)[0]
+        if not np.array_equal(card, host):
+            raise AssertionError(f"align {k}: card and CPU differ")
+        want = [f"{l}:{s}:{e}" for l, s, e in align_to_segments(card)]
+        if lines[k] != want:
+            raise AssertionError(f"align {k}: command segments differ")
+        segs += len(want)
+    return {"utterances": B, "labels": sum(len(v) for v in labels.values()),
+            "segments": segs, "card_equals_cpu": True,
+            "launches": run.launches["align"],
+            "ms_per_utt": run.seconds["align"] * 1e3 / B}
+
+
+def _cli_train(state, run):
+    """(vi) train on phase recipe's 48 / 8 CMVN'd features and labels (the
+    recipe's 4 x 320, 41 targets): 8/8/1/1 launches a step, finite
+    objectives; model-info; net-copy to .nnet gives write_eesen_nnet's
+    bytes; then net-output-extract -> latgen -> compute-wer on the 8 test
+    utterances."""
+    import logging
+    import pickle
+
+    from eesen_tpu_torch.io.kaldi_io import write_ark
+    from eesen_tpu_torch.models.serialize import write_eesen_nnet
+    from eesen_tpu_torch.recipes.config import RECIPES
+    from eesen_tpu_torch.tools import cli
+    from eesen_tpu_torch.training.batching import (
+        BatchConfig, Utterance, make_batches,
+    )
+
+    rd = state["recipe_data"]
+    split, feats, labels = rd["split"], rd["feats"], rd["labels"]
+    for part in ("train", "cv", "test"):
+        write_ark(run.path(f"{part}_f.ark"),
+                  ((k, feats[k]) for k in split[part]))
+        write_ark(run.path(f"{part}_l.ark"),
+                  ((k, labels[k]) for k in split[part]))
+
+    objs = []
+
+    class Objectives(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "Obj(log[Pzx]) = " in msg:
+                objs.append(float(msg.split("Obj(log[Pzx]) = ")[1].split()[0]))
+
+    handler = Objectives()
+    logging.getLogger("eesen_tpu.training.trainer").addHandler(handler)
+    try:
+        text = run("train", "train",
+                   *(f"ark:{run.path(n)}" for n in (
+                       "train_f.ark", "train_l.ark", "cv_f.ark",
+                       "cv_l.ark")),
+                   run.path("model.pt"), *CLI_TRAIN,
+                   "--label-counts", run.path("train_counts"))
+    finally:
+        logging.getLogger("eesen_tpu.training.trainer").removeHandler(handler)
+    epochs = int(text.split()[1])
+    bcfg = BatchConfig(num_sequence=10, frame_limit=25000)
+    if RECIPES["wsj_phn"].batch != bcfg:
+        raise AssertionError("CLI_TRAIN is not the recipe's batch")
+
+    def n_batches(part):
+        return len(list(make_batches([
+            Utterance(k, feats[k], labels[k]) for k in split[part]], bcfg)))
+
+    steps, cv_steps = epochs * n_batches("train"), epochs * n_batches("cv")
+    calls = steps + cv_steps
+    want = {"lstm_fwd": 8 * calls, "lstm_bwd": 8 * steps,
+            "ctc_alpha": calls, "ctc_beta": calls}
+    if run.launches["train"] != want:
+        raise AssertionError(f"train launches {run.launches['train']}, "
+                             f"want {want}")
+    if len(objs) != calls or not np.all(np.isfinite(objs)):
+        raise AssertionError(f"train objectives {objs}")
+    info = run("model_info", "model-info", run.path("model.pt"))
+    if "num-targets 41" not in info or "cell-dim 320" not in info:
+        raise AssertionError(f"model-info: {info}")
+    run("net_copy", "net-copy", run.path("model.pt"), run.path("model.nnet"))
+    params, cfg = cli.load_model(run.path("model.pt"))
+    write_eesen_nnet(run.path("direct.nnet"), params, cfg)
+    with open(run.path("model.nnet"), "rb") as a, open(
+            run.path("direct.nnet"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("net-copy .nnet differs from "
+                                 "write_eesen_nnet's")
+    # the recipe's decode settings on its graph and words
+    with open(run.path("recipe_tlg.pkl"), "wb") as f:
+        pickle.dump(rd["graph"], f)
+    rd["words"].write(run.path("words.txt"))
+    run("net_output_extract_test", "net-output-extract",
+        f"--class-frame-counts={run.path('train_counts')}",
+        run.path("model.pt"), f"ark:{run.path('test_f.ark')}",
+        f"ark:{run.path('test_post.ark')}")
+    dcfg = RECIPES["wsj_phn"].decode
+    run("latgen_test", "latgen", "--beam", dcfg.beam, "--max-active",
+        dcfg.max_active, "--acoustic-scale", dcfg.acoustic_scale,
+        "--blank-skip", dcfg.blank_skip, "--words", run.path("words.txt"),
+        run.path("recipe_tlg.pkl"), f"ark:{run.path('test_post.ark')}",
+        run.path("test_hyp.txt"))
+    with open(run.path("ref.txt"), "w") as f:
+        for k in split["test"]:
+            f.write(f"{k} {' '.join(rd['text'][k])}\n")
+    report = run("compute_wer", "compute-wer", run.path("ref.txt"),
+                 run.path("test_hyp.txt"))
+    wer = float(report.split("%WER")[1].split()[0])
+    if not np.isfinite(wer):
+        raise AssertionError(f"compute-wer: {report}")
+    return {"epochs": epochs, "steps": steps, "cv_steps": cv_steps,
+            "launches": run.launches["train"], "objectives": objs,
+            "s_per_step_incl_cv": run.seconds["train"] / calls,
+            "nnet_bytes_equal": True, "wer": wer, "report": report.strip(),
+            "test_launches": {k: run.launches[k] for k in (
+                "net_output_extract_test", "latgen_test")}}
+
+
+def _cli_fbank(state, run):
+    """(vii) compute-fbank-feats at the wsj_phn options on 8 of phase
+    frontend's waves, on the card and with --device cpu: within FE_TOL
+    where the mel power is above FE_MEL_FLOOR."""
+    import torch
+    from eesen_tpu_torch.io.kaldi_io import read_rspecifier
+
+    waves = state["corpus"]["waves"]
+    keys = sorted(waves)[:8]
+    with open(run.path("wav.scp"), "w") as f:
+        for k in keys:
+            _write_wav16(run.path(f"{k}.wav"), waves[k])
+            f.write(f"{k} {run.path(k + '.wav')}\n")
+    got = {}
+    for device in ("cuda", "cpu"):
+        run(f"fbank_{device}", "compute-fbank-feats", "--num-mel-bins", "40",
+            f"scp:{run.path('wav.scp')}",
+            f"ark:{run.path(f'fbank_{device}.ark')}", device=device)
+        got[device] = dict(read_rspecifier(
+            f"ark:{run.path(f'fbank_{device}.ark')}"))
+    err = 0.0
+    for k in keys:
+        want = got["cpu"][k]
+        mask = want > np.log(FE_MEL_FLOOR)
+        err = max(err, _close(f"compute-fbank-feats {k}", torch.from_numpy(
+            got["cuda"][k][mask]), torch.from_numpy(want[mask]), FE_TOL,
+            FE_TOL))
+    audio_s = sum(len(waves[k]) for k in keys) / 16000.0
+    return {"utterances": len(keys), "max_abs_err_vs_cpu": err,
+            "tol": FE_TOL, "audio_s": audio_s,
+            "card_audio_s_per_s": audio_s / run.seconds["fbank_cuda"],
+            "cpu_audio_s_per_s": audio_s / run.seconds["fbank_cpu"]}
+
+
 def kernels_report(state, timing):
     def mesh_launches(name):
         """A kernel's launches on the mesh path (phase mesh): training in
@@ -3177,6 +3699,12 @@ def kernels_report(state, timing):
             out["mesh_rank_decode_launches"] = [
                 r[name] for r in state["mesh_rank_decode_launches"]]
         return out
+
+    def cli_launches(name):
+        """A kernel's launches in phase cli, by command (nonzero only)."""
+        return {"cli_launches": {
+            label: n[name] for label, n in state["cli_launches"].items()
+            if n.get(name)}}
 
     lt = timing["lstm_fwd"]["D640"]
     ltt = timing["lstm_fwd_train"]["D640"]
@@ -3196,6 +3724,7 @@ def kernels_report(state, timing):
          "replaces": f"eesen_tpu/ops/lstm_pallas.py:{line}",
          "launches": state["v1_launches"][f"lstm_scan_{k}"],
          "recipe_train_launches": rl["train"][f"lstm_scan_{k}"],
+         **cli_launches(f"lstm_scan_{k}"),
          "path": v1_path, "max_abs_err": err[LIBRI_H][k],
          **{f: scan[k]["H640"][f]
             for f in ("ms", "us_per_step", "thread_per_unit_ms", "plain_ms",
@@ -3214,6 +3743,7 @@ def kernels_report(state, timing):
          **mesh_launches(f"ctc_{w}"),
          "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
          "recipe_train_launches": rl["train"][f"ctc_{w}"],
+         **cli_launches(f"ctc_{w}"),
          "max_abs_err": state["ctc"]["max_abs_err"][w],
          **{k: timing[f"ctc_{w}"]["S201"][k]
             for k in ("ms", "us_per_step", "ms_back_to_back", "plan",
@@ -3251,6 +3781,7 @@ def kernels_report(state, timing):
          "recipe_train_launches": rl["train"]["lstm_fwd"],
          "recipe_decode_launches": rl["decode"]["lstm_fwd"],
          "recipe_lattice_launches": rl["lattices"]["lstm_fwd"],
+         **cli_launches("lstm_fwd"),
          "h640": h640["lstm_fwd"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
@@ -3267,6 +3798,7 @@ def kernels_report(state, timing):
          "products": bt["products"],
          "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
          "recipe_train_launches": rl["train"]["lstm_bwd"],
+         **cli_launches("lstm_bwd"),
          "h640": h640["lstm_bwd"]},
         *scan_rows,
         *ctc,
@@ -3283,6 +3815,7 @@ def kernels_report(state, timing):
              state["stream_launches"]["pipeline"]["dedup_prune"],
          "recipe_decode_launches": rl["decode"]["dedup_prune"],
          "recipe_lattice_launches": rl["lattices"]["dedup_prune"],
+         **cli_launches("dedup_prune"),
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
          "plain_ms": dt["plain_ms"],
@@ -3339,6 +3872,7 @@ def run(dev) -> bool:
     if dev.type == "cuda":
         phase("frontend", phase_frontend, dev, state)
         phase("recipe", phase_recipe, dev, state)
+        phase("cli", phase_cli, dev, graphs, state)
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)
         phase("train", phase_train, dev, state)

@@ -1164,3 +1164,85 @@ def test_nnet_roundtrip_on_card(dev, tmp_path):
         assert lstm_cuda.launches == before + 2 * (
             4 if bidirectional else 2)
         assert torch.equal(got, want)
+
+
+def test_ctc_align_on_card_matches_cpu(dev):
+    """ctc_viterbi on the card against the CPU: psi equal, delta within
+    float32 rounding, and equal alignments (mixed lengths, a label-free
+    row)."""
+    from eesen_tpu_torch.ops.align import ctc_align, ctc_viterbi
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 60, 9)).astype(np.float32) * 2.0
+    lp = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    lens = np.array([60, 47, 12, 30])
+    lab_lens = np.array([7, 5, 3, 0])
+    labels = rng.integers(1, 9, (4, 7)).astype(np.int32)
+    labels[np.arange(7)[None, :] >= lab_lens[:, None]] = 0
+    lp_d = torch.from_numpy(lp).to(dev)
+    d_d, p_d = ctc_viterbi(lp_d, lens, labels, lab_lens)
+    d_c, p_c = ctc_viterbi(torch.from_numpy(lp), lens, labels, lab_lens)
+    assert d_d.is_cuda and p_d.dtype == torch.int8
+    assert torch.equal(p_d.cpu(), p_c)
+    torch.testing.assert_close(d_d.cpu(), d_c, rtol=1e-6, atol=1e-4)
+    for a, b in zip(ctc_align(lp_d, lens, labels, lab_lens),
+                    ctc_align(torch.from_numpy(lp), lens, labels, lab_lens)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dense_decoder_on_card_matches_cpu(dev):
+    """decode_dense on the card: the CPU's winning-slot tables and final
+    scores, words and costs."""
+    from eesen_tpu_torch.decoder.dense import (
+        DenseDeviceGraph, build_dense_graph, decode_dense, make_dense_decoder,
+    )
+
+    g, rng = small_graph()
+    dg = build_dense_graph(g, in_degree=4, closure_in_degree=4)
+    assert len(dg.ehub_state) or len(dg.chub_state)
+    ll = rng.standard_normal((3, 20, 6)).astype(np.float32) * 3.0
+    ll -= np.log(np.exp(ll).sum(-1, keepdims=True))
+    lens = np.array([20, 15, 9])
+    dec = make_dense_decoder(dg, 0.9)
+    out_d = dec(ll, lens, DenseDeviceGraph.put(dg, device=dev))
+    out_c = dec(ll, lens, DenseDeviceGraph.put(dg, device="cpu"))
+    assert out_d.emit_arg.is_cuda
+    for a, b in zip(out_d, out_c):
+        assert torch.equal(a.cpu(), b)
+    res_d = decode_dense(ll, lens, dg, DenseDeviceGraph.put(dg, device=dev))
+    res_c = decode_dense(ll, lens, dg, DenseDeviceGraph.put(dg, device="cpu"))
+    for (w_d, c_d), (w_c, c_c) in zip(res_d, res_c):
+        assert w_d == w_c
+        np.testing.assert_allclose(c_d, c_c, rtol=1e-5)
+
+
+def test_cli_net_output_extract_on_card_matches_cpu(dev, tmp_path):
+    """net-output-extract --device cuda (kernel 1 at B=1, unpadded T, two
+    launches an utterance for one bidirectional layer) against --device
+    cpu on a one-layer f32 model."""
+    from eesen_tpu_torch.io.kaldi_io import read_rspecifier, write_ark
+    from eesen_tpu_torch.models.model import AcousticModelConfig, init_model
+    from eesen_tpu_torch.tools import cli
+
+    cfg = AcousticModelConfig(input_dim=6, cell_dim=8, num_layers=1,
+                              num_targets=5, compute_dtype=torch.float32,
+                              state_bf16=False)
+    params = init_model(torch.Generator().manual_seed(3), cfg, "cpu")
+    model = str(tmp_path / "m.pt")
+    cli.save_model_blob(model, {"params": params, "config": cfg})
+    rng = np.random.default_rng(5)
+    feats = {f"u{i}": rng.standard_normal((9 + 7 * i, 6)).astype(np.float32)
+             for i in range(3)}
+    write_ark(str(tmp_path / "f.ark"), feats.items())
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = lstm_cuda.launches
+        assert cli.main(["--device", device, "net-output-extract", model,
+                         f"ark:{tmp_path}/f.ark",
+                         f"ark:{tmp_path}/{device}.ark"]) == 0
+        outs[device] = (dict(read_rspecifier(f"ark:{tmp_path}/{device}.ark")),
+                        lstm_cuda.launches - before)
+    assert outs["cuda"][1] == 2 * len(feats) and outs["cpu"][1] == 0
+    for k in feats:
+        np.testing.assert_allclose(outs["cuda"][0][k], outs["cpu"][0][k],
+                                   rtol=1e-5, atol=1e-5)

@@ -177,3 +177,106 @@ def test_counters_do_not_move_on_cpu():
     ctc_cuda.ctc_alpha_beta(torch.zeros((1, 2, 3)), torch.zeros((1, 3)),
                             torch.zeros((1, 3)), torch.tensor([2]))
     assert counts() == before
+
+
+CLI_DEVICE_COMMANDS = {
+    "compute-fbank-feats": ["compute-fbank-feats", "scp:w.scp", "ark:f.ark"],
+    "compute-mfcc-feats": ["compute-mfcc-feats", "scp:w.scp", "ark:f.ark"],
+    "compute-plp-feats": ["compute-plp-feats", "scp:w.scp", "ark:f.ark"],
+    "compute-spectrogram-feats": ["compute-spectrogram-feats", "scp:w.scp",
+                                  "ark:f.ark"],
+    "compute-kaldi-pitch-feats": ["compute-kaldi-pitch-feats", "scp:w.scp",
+                                  "ark:f.ark"],
+    "net-output-extract": ["net-output-extract", "m.pt", "ark:f.ark",
+                           "ark:p.ark"],
+    "latgen": ["latgen", "g.pkl", "ark:p.ark", "hyp"],
+    "decode-faster": ["decode-faster", "g.pkl", "ark:p.ark", "hyp"],
+    "align": ["align", "m.pt", "ark:f.ark", "ark:l.ark", "ali"],
+    "train": ["train", "ark:f.ark", "ark:l.ark", "ark:f.ark", "ark:l.ark",
+              "m.pt", "--num-targets", "3"],
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(CLI_DEVICE_COMMANDS))
+def test_cli_device_commands_default_to_cuda(no_cuda, cmd):
+    """A command that computes runs on --device, "cuda" by default: with
+    no card it raises (before reading its inputs) unless given
+    --device cpu."""
+    from eesen_tpu_torch.tools import cli
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(CLI_DEVICE_COMMANDS[cmd])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--device", "cuda", *CLI_DEVICE_COMMANDS[cmd]])
+
+
+def test_cli_host_commands_never_touch_cuda(no_cuda, tmp_path, capsys):
+    """Model tools are host code: they run without a card and without
+    --device cpu."""
+    from eesen_tpu_torch.tools import cli
+
+    cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
+                                     num_targets=3)
+    params = tmodel.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    blob = str(tmp_path / "m.pt")
+    cli.save_model_blob(blob, {"params": params, "config": cfg})
+    assert cli.main(["model-info", blob]) == 0
+    assert "cell-dim 4" in capsys.readouterr().out
+    assert cli.main(["net-copy", blob, str(tmp_path / "m.nnet")]) == 0
+    assert cli.main(["net-average", str(tmp_path / "a.pt"), blob,
+                     str(tmp_path / "m.nnet")]) == 0
+
+
+REFUSAL = """
+import sys
+from eesen_tpu_torch.tools import cli
+for what, load in (("model", cli.load_model), ("graph", cli.load_pickle)):
+    try:
+        load(sys.argv[1] if what == "model" else sys.argv[2])
+    except cli.ForeignPickleError as e:
+        print(what, "refused:", e)
+    else:
+        print(what, "loaded")
+print("imported:", sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("eesen_tpu", "jax")))
+"""
+
+
+def test_cli_refuses_jax_pickles_without_importing_them(tmp_path):
+    """The JAX package's model and graph pickles name its classes (and
+    jax's); the port's loaders refuse them before importing any, in a
+    fresh interpreter."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+    from eesen_tpu.models import model as jmodel
+
+    from tests.test_torch_dense import j_arpa, j_compile, j_lang, j_lg, j_tlg
+    from tests.test_ctc_graph import ARPA, LEXICON, UNITS
+
+    jcfg = jmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
+                                      num_targets=4, compute_dtype=jnp.float32)
+    model = str(tmp_path / "model.pkl")
+    with open(model, "wb") as f:
+        pickle.dump({"params": jmodel.init_model(jax.random.PRNGKey(0),
+                                                 jcfg), "config": jcfg}, f)
+    lang = j_lang(LEXICON, UNITS, dict_type="phn")
+    graph = str(tmp_path / "tlg.pkl")
+    with open(graph, "wb") as f:
+        pickle.dump(j_compile(j_tlg(lang.t_fst, j_lg(
+            lang.l_fst, j_arpa(ARPA, lang.words))), max_degree=8), f)
+    res = subprocess.run(
+        [sys.executable, "-c", REFUSAL, model, graph], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert res.returncode == 0, res.stderr
+    out = res.stdout.splitlines()
+    assert out[0].startswith("model refused:") and "net-copy" in out[0] \
+        and ".nnet" in out[0]
+    assert out[1].startswith("graph refused:") and "build-tlg" in out[1]
+    assert out[2] == "imported: []"
