@@ -13,7 +13,8 @@ Phases, one JSON line each:
           m in {4096, 14336}), then on the adversarial rows of
           tests/dedup_cases.py (-0.0/+0.0, negative scores, ties, all
           dead, one dst, few live, int32-extreme dst, NaN scores) at K=512
-          and K=Mp: outputs must be equal, bit for bit.
+          and K=Mp, and at K=5000 with m in {8192, 13192} (phase options'
+          budgeted merges): outputs must be equal, bit for bit.
   graph   the 71-phone bigram TLGs built by the port's host code.
   main    the serving path at full width: the WSJ-phn 4 x 320 BiLSTM (120-d
           input, 72 targets, random weights from a seed) serves 8
@@ -52,6 +53,22 @@ Phases, one JSON line each:
           AM step's, accept's, partial's and the pipeline's ms (host
           clock, synchronized), the real-time factor (pipeline ms /
           160 ms) and kernel 2's launches.
+  options the search options and the batch-major layer: (i) scan_unroll=4
+          on main's lp, bit-equal with the same kernel 2 launches; (ii)
+          the recipes' beam 17 / max_active 5000 on the packed TLG and
+          the converged posteriors: unbudgeted (sort route, no kernel 2),
+          approx_top_k (equal bits), OPT_BUDGETS (emit merges on kernel
+          2, overflow 0, the unbudgeted words, costs within COST_RTOL;
+          ms a frame of each, the peak live degree per table) and
+          OPT_SMALL_BUDGET (every merge on kernel 2, overflow counted);
+          (iv) light_closure/emit_dedup alone and together at K=512 on 2
+          utterances, card against CPU (words, COST_RTOL), kernel 2's
+          launches (0 with both) and the words kept from the full
+          search; (v) the 1000-word TLG compiled with hubs (the lowest
+          degree threshold whose emit merge fits kernel 2) against the
+          graph without: words, COST_RTOL, lanes, route and launches;
+          (vi) bilstm_layer layer by layer through the 4 x 320 stack:
+          bilstm_layer_tm's bits, 2 lstm_fwd launches a layer.
   frontend audio in on the card: 64 utterances of the seeded synthetic
           corpus (recipes/synth_corpus, 40 phones, 4-10 words) padded to
           one power-of-two bucket: (i) fbank at the wsj_phn options (40
@@ -346,6 +363,18 @@ CHUNK = 16
 WSJ_FRAME_MS = 10.0
 STREAM_ATOL = 1e-4
 STREAM_COST_RTOL = 1e-4
+# phase options: the recipes' decode setting (recipes/config.py wsj_phn:
+# beam 17, max_active 5000) on the packed graph.  Unbudgeted, its merges
+# (40,000 and 140,000 lanes) take the sort route.  OPT_BUDGETS puts the
+# emit merge on kernel 2 at its cap of 16,384 lanes and narrows the
+# closure merge to K + 40,960 lanes (still the sort route: the closure's
+# live degree outgrows the 11,384 lanes kernel 2 leaves beside K); the
+# phase records both peaks.  OPT_SMALL_BUDGET puts both merges on kernel
+# 2 (8192 and 13,192 lanes) and drops arcs, counted in overflow.
+OPT_K, OPT_BEAM = 5000, 17.0
+OPT_BUDGETS = dict(arc_budget_emit=16384, arc_budget_x=40960)
+OPT_SMALL_BUDGET = 8192
+LIGHT_UTTS = 2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_OPS = 67e12                # float32 outside the tensor cores
@@ -481,13 +510,16 @@ def _dedup_equal(what, dst, score, k):
 def phase_dedup(dev):
     import torch
     from dedup_cases import CASES, make_case
-    from eesen_tpu_torch.ops import beam_cuda
 
     errs = {}
-    for m in (4096, 14336):
-        _dedup_equal(f"m={m}", *dedup_inputs(m, dev, SEED + m), K)
-        errs[f"m{m}"] = 0.0
-        for k in (K, beam_cuda.padded_width(m)):
+    for m, ks in ((4096, (K, 4096)), (14336, (K, 16384)),
+                  # the budgeted merges of phase options at K = OPT_K
+                  (OPT_SMALL_BUDGET, (OPT_K,)),
+                  (OPT_K + OPT_SMALL_BUDGET, (OPT_K,))):
+        _dedup_equal(f"m={m} k={ks[0]}", *dedup_inputs(m, dev, SEED + m),
+                     ks[0])
+        errs[f"m{m}_k{ks[0]}"] = 0.0
+        for k in ks:
             for case in CASES:
                 dst, score = make_case(case, B, m, seed=SEED + m + k)
                 _dedup_equal(f"m={m} k={k} {case}",
@@ -500,7 +532,7 @@ def phase_dedup(dev):
 def build_graph(num_words: int, num_sents: int):
     """71-phone bigram TLG (bench.py's inline graph, with the phone count
     of the 72-target model), compiled with degree cap 8 and the eps
-    closure.  Returns (graph, lang, lexicon)."""
+    closure.  Returns (graph, lang, lexicon, the TLG Fst)."""
     from eesen_tpu_torch.decoder.arpa import arpa_to_fst
     from eesen_tpu_torch.decoder.ctc_graph import (
         build_lg, build_tlg, compile_lang,
@@ -523,17 +555,20 @@ def build_graph(num_words: int, num_sents: int):
     lang = compile_lang(lex, units, dict_type="phn")
     fst = build_tlg(lang.t_fst, build_lg(lang.l_fst, arpa_to_fst(
         arpa, lang.words)))
-    return compile_graph(fst, max_degree=8, build_closure=True), lang, lex
+    return (compile_graph(fst, max_degree=8, build_closure=True), lang, lex,
+            fst)
 
 
-def phase_graph(graphs):
+def phase_graph(graphs, state):
     from eesen_tpu_torch.decoder.beam import use_dense_rows
 
     out = {}
     for tag, (nw, ns) in (("packed", (2000, 20000)), ("dense", (1000, 5000))):
         t0 = time.perf_counter()
-        g, lang, lex = build_graph(nw, ns)
+        g, lang, lex, fst = build_graph(nw, ns)
         graphs[tag] = (g, lang, lex)
+        if tag == "dense":
+            state["dense_fst"] = fst        # phase options recompiles it
         layout = "dense" if use_dense_rows(g) else "packed"
         if layout != tag:
             raise AssertionError(f"{tag} graph took the {layout} layout")
@@ -981,6 +1016,239 @@ def phase_stream(dev, graphs, state):
     state["stream_launches"] = {"dedup_prune": stream_launches,
                                 "pipeline": pipe_launches,
                                 "offline": out["offline_launches"]}
+    return out
+
+
+def _same_outputs(what, got, want):
+    """Every BeamOutputs field bit for bit."""
+    import torch
+
+    for name, a, b in zip(got._fields, got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def _degree_peaks():
+    """Wrap decoder/beam._expand_compact so that the largest live degree
+    total of any row, per table (0 emit, 1 closure), is kept; returns
+    (peaks, restore).  The peaks stay on the device until read."""
+    import torch
+    from eesen_tpu_torch.decoder import beam
+
+    real = beam._expand_compact
+    peaks = {}
+
+    def spy(offs, scores, packed, which, m_budget):
+        deg = torch.where(torch.isfinite(scores), offs[..., 2 * which + 1],
+                          0).sum(dim=1).max()
+        peaks[which] = torch.maximum(peaks.get(which, deg), deg)
+        return real(offs, scores, packed, which, m_budget)
+
+    def restore():
+        beam._expand_compact = real
+
+    beam._expand_compact = spy
+    return peaks, restore
+
+
+def emit_merge_width(graph, k: int, m_e: int = 0) -> int:
+    """Lanes of a frame's emit merge by make_beam_decoder's rule: the
+    budget (packed layout) or K x the emit row width, plus the hub arcs."""
+    from eesen_tpu_torch.decoder.beam import use_dense_rows
+
+    hubs = int(graph.hub_offsets[-1]) if graph.has_hubs else 0
+    if m_e and not use_dense_rows(graph):
+        return max(m_e, k) + hubs
+    return merge_widths(graph, k)[0] + hubs
+
+
+def hub_threshold(fst, k: int) -> int:
+    """The smallest raw emit out-degree whose states, taken as hubs, keep
+    the emit merge (K x the degree cap of 8, plus the hub arcs) within
+    kernel 2's cap."""
+    from eesen_tpu_torch.ops import beam_cuda
+
+    deg = np.array([sum(a.ilabel != 0 for a in fst.arcs[s])
+                    for s in range(fst.num_states)])
+    room = beam_cuda.MAX_LANES - k * 8
+    for t in sorted(set(deg[deg > 8].tolist())):
+        if int(deg[deg >= t].sum()) <= room:
+            return t
+    raise AssertionError("no hub threshold fits kernel 2")
+
+
+def phase_options(dev, graphs, state):
+    """The search options and the batch-major layer: (i) scan_unroll, (ii)
+    arc budgets at the recipes' max_active 5000 and approx_top_k, (iv)
+    the light dedup modes, (v) a hub graph, (vi) bilstm_layer.  (iii),
+    kernel 2 at K = 5000, is in phases dedup and timing."""
+    import dataclasses
+
+    import torch
+    from eesen_tpu_torch.decoder.beam import (
+        BeamSearchConfig, DeviceGraph, make_beam_decoder, traceback,
+    )
+    from eesen_tpu_torch.decoder.graph_compile import compile_graph
+    from eesen_tpu_torch.models.bilstm import bilstm_layer, bilstm_layer_tm
+    from eesen_tpu_torch.ops import beam_cuda
+
+    def k2():
+        return counters()["dedup_prune"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        n0, t0 = k2(), time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, k2() - n0
+
+    out, launches = {}, {}
+    g, lang, lex = graphs["packed"]
+    dg = DeviceGraph.put(g, device=dev)
+    bcfg = BeamSearchConfig(**DECODE)
+    lens = np.asarray(LENGTHS, np.int32)
+    # (i) scan_unroll: the frame loop is Python, so the same bits
+    one, _, n_one = timed(lambda: make_beam_decoder(g, bcfg)(
+        state["lp"], state["lens"], dg))
+    four, _, n_four = timed(lambda: make_beam_decoder(
+        g, dataclasses.replace(bcfg, scan_unroll=4))(
+        state["lp"], state["lens"], dg))
+    _same_outputs("scan_unroll=4", four, one)
+    if n_four != n_one or n_one == 0:
+        raise AssertionError(f"scan_unroll launches {n_four} vs {n_one}")
+    out["scan_unroll"] = {"bit_equal": True, "dedup_launches": n_four}
+    launches["scan_unroll"] = n_four
+    # (ii) max_active 5000, beam 17 on the converged posteriors
+    ll = torch.from_numpy(search_posteriors(lang, lex)).to(dev)
+    kcfg = BeamSearchConfig(beam=OPT_BEAM, max_active=OPT_K,
+                            acoustic_scale=DECODE["acoustic_scale"])
+    full, full_ms, n_full = timed(lambda: make_beam_decoder(g, kcfg)(
+        ll, lens, dg))
+    approx, _, _ = timed(lambda: make_beam_decoder(
+        g, dataclasses.replace(kcfg, approx_top_k=True))(ll, lens, dg))
+    _same_outputs("approx_top_k", approx, full)
+    res_full = traceback(full, lens, g.final_weight)
+    bud_cfg = dataclasses.replace(kcfg, **OPT_BUDGETS)
+    peaks, restore = _degree_peaks()
+    try:
+        bud = make_beam_decoder(g, bud_cfg)(ll, lens, dg)
+    finally:
+        restore()
+    bud, bud_ms, n_bud = timed(lambda: make_beam_decoder(g, bud_cfg)(
+        ll, lens, dg))
+    widths = {"emit": emit_merge_width(g, OPT_K, OPT_BUDGETS[
+        "arc_budget_emit"]), "closure": OPT_K + OPT_BUDGETS["arc_budget_x"]}
+    fits = {k: beam_cuda.padded_width(m) <= beam_cuda.MAX_LANES
+            for k, m in widths.items()}
+    want = fits["closure"] + T_MAX * (fits["emit"] + fits["closure"])
+    overflow = int(bud.overflow.sum())
+    if n_full != 0 or n_bud != want or overflow:
+        raise AssertionError(f"budgeted decode: {n_bud} launches (want "
+                             f"{want}), overflow {overflow}; unbudgeted "
+                             f"{n_full} launches")
+    _results_equal("budgeted vs unbudgeted", traceback(
+        bud, lens, g.final_weight), res_full, COST_RTOL)
+    small_cfg = dataclasses.replace(kcfg, arc_budget_emit=OPT_SMALL_BUDGET,
+                                    arc_budget_x=OPT_SMALL_BUDGET)
+    small, small_ms, n_small = timed(lambda: make_beam_decoder(
+        g, small_cfg)(ll, lens, dg))
+    small_ovf = int(small.overflow.sum())
+    if small_ovf == 0 or n_small != 1 + 2 * T_MAX:
+        raise AssertionError(f"small budget: overflow {small_ovf}, "
+                             f"{n_small} launches")
+    res_small = traceback(small, lens, g.final_weight)
+    out["budgets"] = {
+        "max_active": OPT_K, "beam": OPT_BEAM, "frames": T_MAX,
+        "unbudgeted": {"ms_per_frame": full_ms / T_MAX,
+                       "dedup_launches": n_full,
+                       "merge_lanes": list(merge_widths(g, OPT_K))},
+        "approx_top_k_bit_equal": True,
+        "budgeted": {**OPT_BUDGETS, "ms_per_frame": bud_ms / T_MAX,
+                     "dedup_launches": n_bud, "merge_lanes": widths,
+                     "kernel_2": fits, "overflow": overflow,
+                     "peak_live_degree": {
+                         ("emit", "closure")[w]: int(v)
+                         for w, v in peaks.items()}},
+        "small": {"arc_budget": OPT_SMALL_BUDGET,
+                  "ms_per_frame": small_ms / T_MAX,
+                  "dedup_launches": n_small, "overflow": small_ovf,
+                  "utts_with_full_words": sum(
+                      a[0] == b[0] for a, b in zip(res_small, res_full))},
+    }
+    launches["budgeted"], launches["small_budget"] = n_bud, n_small
+    # (iv) light dedup at K=512, 2 utterances, card against the CPU
+    ll2, lens2 = ll[:LIGHT_UTTS], lens[:LIGHT_UTTS]
+    dg_cpu = DeviceGraph.put(g, device="cpu")
+    ref2 = traceback(make_beam_decoder(g, bcfg)(ll2, lens2, dg),
+                     lens2, g.final_weight)
+    out["light"] = {}
+    for name, opts in (("closure", dict(light_closure_dedup=True)),
+                       ("emit", dict(light_emit_dedup=True)),
+                       ("both", dict(light_closure_dedup=True,
+                                     light_emit_dedup=True))):
+        dec = make_beam_decoder(g, dataclasses.replace(bcfg, **opts))
+        res, ms, n = timed(lambda: dec(ll2, lens2, dg))
+        res = traceback(res, lens2, g.final_weight)
+        res_cpu = traceback(dec(ll2.cpu(), lens2, dg_cpu), lens2,
+                            g.final_weight)
+        _results_equal(f"light {name} card vs cpu", res, res_cpu, COST_RTOL)
+        out["light"][name] = {
+            "dedup_launches": n, "ms_per_frame": ms / T_MAX,
+            "utts_with_full_words": sum(
+                a[0] == b[0] for a, b in zip(res, ref2))}
+        launches[f"light_{name}"] = n
+    if out["light"]["both"]["dedup_launches"] != 0:
+        raise AssertionError(f"light modes launched kernel 2: {out['light']}")
+    # (v) the 1000-word TLG again with hubs, against the graph without
+    gd, lang_d, lex_d = graphs["dense"]
+    t0 = time.perf_counter()
+    thr = hub_threshold(state["dense_fst"], K)
+    gh = compile_graph(state["dense_fst"], max_degree=8, hub_threshold=thr,
+                       build_closure=True)
+    compile_s = time.perf_counter() - t0
+    lld = torch.from_numpy(search_posteriors(lang_d, lex_d)).to(dev)
+    dg_d = DeviceGraph.put(gd, device=dev)
+    dg_h = DeviceGraph.put(gh, device=dev)
+    plain, plain_ms, _ = timed(lambda: make_beam_decoder(gd, bcfg)(
+        lld, lens, dg_d))
+    hub, hub_ms, n_hub = timed(lambda: make_beam_decoder(gh, bcfg)(
+        lld, lens, dg_h))
+    _results_equal("hub vs plain graph", traceback(hub, lens, gh.final_weight),
+                   traceback(plain, lens, gd.final_weight), COST_RTOL)
+    width = emit_merge_width(gh, K)
+    on_k2 = beam_cuda.padded_width(width) <= beam_cuda.MAX_LANES
+    if not on_k2 or n_hub != kernel2_launches(gh, K, [T_MAX]):
+        raise AssertionError(f"hub emit merge {width} lanes, {n_hub} "
+                             f"launches")
+    out["hubs"] = {"hub_threshold": thr, "hubs": len(gh.hub_src),
+                   "hub_arcs": int(gh.hub_offsets[-1]),
+                   "states": gh.num_states, "plain_states": gd.num_states,
+                   "compile_s": compile_s, "emit_merge_lanes": width,
+                   "route": "kernel 2" if on_k2 else "sort",
+                   "dedup_launches": n_hub, "ms_per_frame": hub_ms / T_MAX,
+                   "plain_ms_per_frame": plain_ms / T_MAX}
+    launches["hubs"] = n_hub
+    # (vi) bilstm_layer through the serving stack, layer by layer
+    cfg, params = state["cfg"], state["params"]
+    x = torch.from_numpy(state["arr"]).to(dev)
+    lens_t = torch.from_numpy(state["lens"])
+    n_layer = []
+    for i in range(cfg.num_layers):
+        lcfg = cfg.layer_cfg(i)
+        n0 = counters()["lstm_fwd"]
+        y = bilstm_layer(params["layers"][i], x, lens_t, lcfg)
+        torch.cuda.synchronize()
+        n_layer.append(counters()["lstm_fwd"] - n0)
+        y_tm = bilstm_layer_tm(params["layers"][i],
+                               x.transpose(0, 1).contiguous(), lens_t, lcfg)
+        if not torch.equal(y, y_tm.transpose(0, 1)):
+            raise AssertionError(f"bilstm_layer {i} differs from the "
+                                 "time-major layer")
+        x = y
+    if n_layer != [2] * cfg.num_layers:
+        raise AssertionError(f"bilstm_layer launches {n_layer}")
+    out["bilstm_layer"] = {"bit_equal": True, "lstm_fwd_launches": n_layer}
+    state["options_launches"] = launches
     return out
 
 
@@ -2054,11 +2322,11 @@ def ctc_bound_ms(inp, which: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS) * 1e3
 
 
-def dedup_bound_ms(m: int) -> float:
-    """Kernel 2: reads dst and score once, writes K slots of three 4-byte
+def dedup_bound_ms(m: int, k: int = K) -> float:
+    """Kernel 2: reads dst and score once, writes k slots of three 4-byte
     outputs; ~8 operations a lane (threshold, hash, compare), far below
     the bytes."""
-    nbytes = B * m * 8 + B * K * 12
+    nbytes = B * m * 8 + B * k * 12
     ops = 8.0 * B * m
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS) * 1e3
 
@@ -2262,18 +2530,21 @@ def phase_timing(dev):
             bound_ms=bound, bound_by=by,
             clusters=fwd_residency(B, 320),
         )
-    for m in (4096, 14336):
+    for m, k, tag in ((4096, K, "m4096"), (14336, K, "m14336"),
+                      (OPT_SMALL_BUDGET, OPT_K, f"m{OPT_SMALL_BUDGET}_k{OPT_K}"),
+                      (OPT_K + OPT_SMALL_BUDGET, OPT_K,
+                       f"m{OPT_K + OPT_SMALL_BUDGET}_k{OPT_K}")):
         dst, score = dedup_inputs(m, dev, SEED + m)
         beam = DECODE["beam"]
-        out["dedup_prune"][f"m{m}"] = dict(
-            ms=_cuda_ms(lambda: beam_cuda.dedup_prune(dst, score, K, beam),
+        out["dedup_prune"][tag] = dict(
+            ms=_cuda_ms(lambda: beam_cuda.dedup_prune(dst, score, k, beam),
                         50),
             device_ms=_device_ms(
-                lambda: beam_cuda.dedup_prune(dst, score, K, beam),
+                lambda: beam_cuda.dedup_prune(dst, score, k, beam),
                 "dedup_prune_kernel", 50),
             plain_ms=_cuda_ms(lambda: beam_cuda.dedup_prune_ref(
-                dst, score, K, beam), 20),
-            bound_ms=dedup_bound_ms(m),
+                dst, score, k, beam), 20),
+            bound_ms=dedup_bound_ms(m, k),
         )
     out.update(timing_train_shapes(dev))
     out.update(timing_libri(dev))
@@ -3709,6 +3980,8 @@ def kernels_report(state, timing):
     lt = timing["lstm_fwd"]["D640"]
     ltt = timing["lstm_fwd_train"]["D640"]
     dt = timing["dedup_prune"]["m14336"]
+    k5000 = {m: timing["dedup_prune"][f"m{m}_k{OPT_K}"]
+             for m in (OPT_SMALL_BUDGET, OPT_K + OPT_SMALL_BUDGET)}
     bt = timing["lstm_bwd"]["D640"]
     tl = state["train_launches"]
     rl = state["recipe_launches"]
@@ -3816,12 +4089,15 @@ def kernels_report(state, timing):
          "recipe_decode_launches": rl["decode"]["dedup_prune"],
          "recipe_lattice_launches": rl["lattices"]["dedup_prune"],
          **cli_launches("dedup_prune"),
+         "options_launches": state["options_launches"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
          "plain_ms": dt["plain_ms"],
          "bound_ms": dt["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
-         "shape": "B=8 M=14336 (16384 lanes) K=512"},
+         "shape": "B=8 M=14336 (16384 lanes) K=512",
+         **{f"k{OPT_K}_{f}": {f"m{m}": t[f] for m, t in k5000.items()}
+            for f in ("ms", "device_ms", "plain_ms", "bound_ms")}},
     ]}
 
 
@@ -3862,13 +4138,14 @@ def run(dev) -> bool:
             return False
     state["lstm"] = phase("lstm", phase_lstm, dev)
     state["dedup"] = phase("dedup", phase_dedup, dev)
-    if phase("graph", phase_graph, graphs) is None:
+    if phase("graph", phase_graph, graphs, state) is None:
         return False
     if phase("main", phase_main, dev, graphs, state) is None:
         return False
     phase("search", phase_search, dev, graphs)
     phase("skip", phase_skip, dev, graphs, state)
     phase("stream", phase_stream, dev, graphs, state)
+    phase("options", phase_options, dev, graphs, state)
     if dev.type == "cuda":
         phase("frontend", phase_frontend, dev, state)
         phase("recipe", phase_recipe, dev, state)

@@ -13,5 +13,7 @@ parity checks against the JAX package assume it.
 
 import torch
 
+__version__ = "0.1.0"
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -12,6 +12,13 @@ tid-1 acoustic column shift), with static shapes:
   either the arc-packed [E, 8] rows (il, ol, weight bits, dst and the
   destination's own table offsets, so the active set carries its offsets)
   or, for graphs that fit DENSE_ROWS_BUDGET, state-indexed [N, D, 4] rows.
+  On the packed layout an arc budget M (`arc_budget_emit`,
+  `arc_budget_x`) lays the active set's arcs out contiguously in M shared
+  lanes instead (`_expand_compact`); arcs past the budget are dropped and
+  counted in `overflow`.
+- High-fanout "hub" states (graphs compiled with hub_threshold > 0) are
+  expanded every frame from their own arc table; their lanes follow the
+  gathered ones in the emit merge.
 - Viterbi recombination + beam + top-K (`_dedup`) runs the CUDA kernel
   (ops/beam_cuda.py) on CUDA tensors whenever the padded proposal width
   fits its cap; wider merges, and every merge on the CPU, take the sort
@@ -31,9 +38,8 @@ set is the carry between chunks, and `compose_chunk_paths` folds a
 chunk's per-frame backpointers into one [B, K] summary on the device.
 Blank-skip (`cfg.blank_skip`, decoder/frame_skip.py) is applied by the
 callers (recipes/run.run_search, StreamingBeamDecoder.accept), not by the
-search, as in the JAX package.  Not ported yet (they raise
-NotImplementedError): hub graphs, approx_top_k, the light_* dedup modes,
-compact arc budgets and scan_unroll > 1.
+search, as in the JAX package.  The light_* modes replace a merge's
+recombination by a plain top-K (`_topk_prune`, torch ops, no kernel).
 """
 
 from __future__ import annotations
@@ -80,32 +86,29 @@ class BeamSearchConfig:
     blank_skip: float = 0.0
     # kept-frame counts are rounded up to this bucket
     blank_skip_bucket: int = 64
-    # --- not ported yet: a non-default value raises NotImplementedError
+    # the JAX package's approximate top-k on its sort path; here the top-k
+    # stays exact (`_smallest_k`), on the CPU and on the card
     approx_top_k: bool = False
+    # plain top-K without recombination (`_topk_prune`) on every eps
+    # iteration but the last (graphs without a closure) ...
     light_eps_dedup: bool = False
+    # ... after the emitting phase ...
     light_emit_dedup: bool = False
+    # ... or after the single closure expansion: duplicate states then
+    # share the beam's slots, exact while max_active has headroom
     light_closure_dedup: bool = False
+    # the JAX package's acoustic gather switch; `_acoustic_lookup` always
+    # gathers, so it changes nothing here
+    acoustic_gather: bool = False
+    # the JAX package's frame-scan unroll factor; the frame loop here is a
+    # Python loop, so it changes nothing
     scan_unroll: int = 1
+    # compact (CSR) arc expansion budgets on the packed layout: M > 0 lays
+    # the active set's arcs out in M shared lanes (clamped up to K);
+    # arcs past the budget are dropped and counted in
+    # BeamOutputs.overflow.  0 = one max-degree block per slot
     arc_budget_emit: int = 0
     arc_budget_x: int = 0
-
-
-def _check_ported(graph: CompiledGraph, cfg: BeamSearchConfig) -> None:
-    """Raise for the settings and graph features not ported yet."""
-    unported = [name for name, on in (
-        ("approx_top_k", cfg.approx_top_k),
-        ("light_eps_dedup", cfg.light_eps_dedup),
-        ("light_emit_dedup", cfg.light_emit_dedup),
-        ("light_closure_dedup", cfg.light_closure_dedup),
-        ("scan_unroll > 1", cfg.scan_unroll > 1),
-        ("arc_budget_emit", cfg.arc_budget_emit > 0),
-        ("arc_budget_x", cfg.arc_budget_x > 0),
-        ("hub graphs", graph.has_hubs),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)}"
-        )
 
 
 # Dense state-indexed arc rows replace the arc-packed layout whenever the
@@ -120,11 +123,15 @@ def use_dense_rows(graph: CompiledGraph) -> bool:
 class DeviceGraph(NamedTuple):
     """CompiledGraph arrays as device tensors.  Exactly one of the two
     layouts is populated (the other fields are zero-size): arc-packed
-    ([E, 8] rows indexed base+j) or dense state-indexed rows ([N, D, 4])."""
+    ([E, 8] rows indexed base+j) or dense state-indexed rows ([N, D, 4]).
+    The hub tables are zero-size on a graph without hubs."""
     emit_packed: torch.Tensor    # [Ee, 8] int32
     x_packed: torch.Tensor       # [Ex, 8] int32: closure if built, else eps
     emit_rows: torch.Tensor      # [N, De, 4] int32 (else [0, 1, 4])
     x_rows: torch.Tensor         # [N, Dx, 4] int32 (else [0, 1, 4])
+    hub_src: torch.Tensor        # [H] int32 hub state ids
+    hub_of_arc: torch.Tensor     # [Eh] int32 hub index of each hub arc
+    hub_packed: torch.Tensor     # [Eh, 8] int32 hub arc rows
     final_weight: torch.Tensor   # [N] float32
 
     @classmethod
@@ -132,8 +139,6 @@ class DeviceGraph(NamedTuple):
         cls, g: CompiledGraph, dense: Optional[bool] = None, device="cuda",
     ) -> "DeviceGraph":
         device = check_device(device)
-        if g.has_hubs:
-            raise NotImplementedError("hub graphs are not ported yet")
         if dense is None:
             dense = use_dense_rows(g)
         z = np.zeros((0, 1, 4), np.int32)
@@ -147,11 +152,22 @@ class DeviceGraph(NamedTuple):
             x_packed = (
                 g.closure_packed8() if g.has_closure else g.eps_packed()
             )
+        if g.has_hubs:
+            hub_src = g.hub_src
+            hub_of_arc = np.repeat(
+                np.arange(len(hub_src), dtype=np.int32),
+                np.diff(g.hub_offsets),
+            )
+            hub_packed = g.hub_packed8()
+        else:
+            hub_src = hub_of_arc = np.zeros(0, np.int32)
+            hub_packed = np.zeros((0, 8), np.int32)
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         return cls(t(emit_packed), t(x_packed), t(emit_rows), t(x_rows),
+                   t(hub_src), t(hub_of_arc), t(hub_packed),
                    t(g.final_weight))
 
 
@@ -241,6 +257,49 @@ def _expand(
     )
 
 
+def _expand_compact(
+    offs: torch.Tensor, scores: torch.Tensor, packed: torch.Tensor,
+    which: int, m_budget: int,
+):
+    """CSR expansion: the active set's arcs laid out contiguously in
+    `m_budget` shared lanes instead of one max-degree block per slot.
+    offs [B, K, 4] + scores [B, K] -> (dst, score without acoustic,
+    ilabel, olabel [B, M], dst offsets [B, M, 4], source slot [B, M]
+    int64, arc overflow [B] int32).  Slot k owns lanes [cum[k], cum[k] +
+    deg[k]), cum the exclusive cumsum of the live degrees; a lane's owner
+    is the last slot with cum <= lane (zero-degree slots own no lane).
+    Arcs past the budget are dropped and counted."""
+    b, k, _ = offs.shape
+    dev = offs.device
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    base = offs[..., 2 * which]
+    deg = torch.where(torch.isfinite(scores), offs[..., 2 * which + 1],
+                      zero).long()
+    cum = torch.cumsum(deg, dim=1) - deg                  # exclusive
+    total = cum[:, -1] + deg[:, -1]                       # [B]
+    lane = torch.arange(m_budget, device=dev).repeat(b, 1)
+    n_arcs = packed.shape[0]
+    if n_arcs == 0:
+        z = torch.zeros((b, m_budget), dtype=torch.int32, device=dev)
+        return (z, torch.full((b, m_budget), INF, device=dev), z, z,
+                torch.zeros((b, m_budget, 4), dtype=torch.int32, device=dev),
+                z.long(), torch.zeros((b,), dtype=torch.int32, device=dev))
+    src = (torch.searchsorted(cum, lane, right=True) - 1).clamp(0, k - 1)
+    aid = base.gather(1, src) + (lane - cum.gather(1, src))
+    valid = lane < total.clamp(max=m_budget)[:, None]
+    rows = packed[aid.clamp(0, n_arcs - 1)]               # [B, M, 8]
+    il = torch.where(valid, rows[..., 0], zero)
+    ol = torch.where(valid, rows[..., 1], zero)
+    dst = torch.where(valid, rows[..., 3], zero)
+    score = torch.where(
+        valid, scores.gather(1, src) + _bits_to_f32(rows[..., 2]),
+        torch.tensor(INF, device=dev),
+    )
+    d_offs = torch.where(valid[..., None], rows[..., 4:8], zero)
+    arc_overflow = (total - m_budget).clamp(min=0).int()
+    return dst, score, il, ol, d_offs, src, arc_overflow
+
+
 def _acoustic_lookup(
     ll_t: torch.Tensor, col: torch.Tensor, scale: float,
 ) -> torch.Tensor:
@@ -293,6 +352,18 @@ def _dedup_and_prune(
     )
     kept = orig_idx.gather(1, top_idx)
     return new_states, new_scores, kept
+
+
+def _topk_prune(dst: torch.Tensor, score: torch.Tensor, k: int):
+    """Pruning without recombination (duplicate states may survive):
+    the K best proposals, as (states [B, K], scores [B, K], idx [B, K])."""
+    idx = _smallest_k(score, k)
+    new_scores = score.gather(1, idx)
+    new_states = torch.where(
+        torch.isfinite(new_scores), dst.gather(1, idx),
+        torch.full_like(idx, -1, dtype=dst.dtype),
+    )
+    return new_states, new_scores, idx
 
 
 def _sort_by_state(states, scores, kept):
@@ -376,7 +447,6 @@ def make_beam_decoder(
       -> (carry, (states, scores, parent, olabels, lat_mask)), each
       [Tc, B, K(, L)], the carry (states, scores, offsets, overflow) of
       the chunk's last frame."""
-    _check_ported(graph, cfg)
     k = cfg.max_active
     dense = use_dense_rows(graph)
     d_e = max(graph.max_emit_degree, 1)
@@ -385,6 +455,7 @@ def make_beam_decoder(
         graph.max_closure_degree if use_closure else graph.max_eps_degree,
         1,
     )
+    has_hubs = graph.has_hubs
     eps_iters = 1 if use_closure else (
         cfg.eps_iters or max(graph.eps_depth, 1)
     )
@@ -395,6 +466,11 @@ def make_beam_decoder(
         None if dense else [int(x) for x in graph.state_offs(graph.start)]
     )
     funnel = cfg.funnel_mult * k if cfg.funnel_mult > 0 else 0
+    # budgets apply to the packed layout and are clamped up to K: fewer
+    # lanes than slots would leave the merge short of candidates
+    m_e = 0 if dense or cfg.arc_budget_emit <= 0 else max(
+        cfg.arc_budget_emit, k)
+    m_x = 0 if dense or cfg.arc_budget_x <= 0 else max(cfg.arc_budget_x, k)
     L = max(cfg.max_olabels, 1)
     lat_beam = cfg.lattice_beam
 
@@ -416,30 +492,51 @@ def make_beam_decoder(
         """x [B, M, C] rows picked by idx [B, K]."""
         return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
-    def _x_step(carry, dg: DeviceGraph):
-        """One eps/closure expansion merged with the carried set."""
+    def _slot_of_lane(b: int, width: int, dev) -> torch.Tensor:
+        """The source slot of each lane of a rectangular expansion of
+        `width` lanes (width / K lanes a slot) -> [B, width] int64."""
+        return torch.arange(k, device=dev).repeat_interleave(
+            width // k).expand(b, width)
+
+    def _x_step(carry, dg: DeviceGraph, full_dedup: bool):
+        """One eps/closure expansion merged with the carried set;
+        recombined by `_dedup`, or only pruned by `_topk_prune`."""
         states, scores, offs, parent, olab, overflow = carry
         if dense:
             dst, pscore, _, exp_ol, d_offs = _expand_dense(
                 states, scores, dg.x_rows
             )
+            src = None
+        elif m_x > 0:
+            dst, pscore, _, exp_ol, d_offs, src, arc_of = _expand_compact(
+                offs, scores, dg.x_packed, 1, m_x
+            )
+            overflow = overflow + arc_of
         else:
             dst, pscore, _, exp_ol, d_offs = _expand(
                 offs, scores, dg.x_packed, d_x, which=1
             )
+            src = None
         exp_ol = torch.where(
             torch.isfinite(pscore), exp_ol, torch.zeros_like(exp_ol)
         )
-        d_eff = pscore.shape[1] // k
-        exp_parent = parent.repeat_interleave(d_eff, dim=1)
-        exp_olab = olab.repeat_interleave(d_eff, dim=1)
-        exp_olab, overflow = _append_olabel(exp_olab, exp_ol, overflow)
+        if src is None:
+            src = _slot_of_lane(states.shape[0], pscore.shape[1],
+                                pscore.device)
+        exp_olab, overflow = _append_olabel(
+            _take_rows(olab, src), exp_ol, overflow
+        )
         all_dst = torch.cat([states.clamp(min=0), dst], dim=1)
         all_score = torch.cat([scores, pscore], dim=1)
-        all_parent = torch.cat([parent, exp_parent], dim=1)
+        all_parent = torch.cat([parent, parent.gather(1, src)], dim=1)
         all_olab = torch.cat([olab, exp_olab], dim=1)
         all_offs = torch.cat([offs, d_offs], dim=1)
-        new_states, new_scores, top_idx = _dedup(all_dst, all_score)
+        if full_dedup:
+            new_states, new_scores, top_idx = _dedup(all_dst, all_score)
+        else:
+            new_states, new_scores, top_idx = _topk_prune(
+                all_dst, all_score, k
+            )
         return (
             new_states, new_scores, _take_rows(all_offs, top_idx),
             all_parent.gather(1, top_idx), _take_rows(all_olab, top_idx),
@@ -447,8 +544,12 @@ def make_beam_decoder(
         )
 
     def eps_phase(carry, dg: DeviceGraph):
-        for _ in range(eps_iters):
-            carry = _x_step(carry, dg)
+        if use_closure:
+            return _x_step(carry, dg, not cfg.light_closure_dedup)
+        for i in range(eps_iters):
+            # light_eps_dedup: recombine on the last iteration only
+            carry = _x_step(carry, dg, not cfg.light_eps_dedup
+                            or i == eps_iters - 1)
         return carry
 
     def init_active_set(b: int, dg: DeviceGraph):
@@ -471,13 +572,42 @@ def make_beam_decoder(
         )
         return (states0, scores0, offs0, overflow0), init_olab
 
+    def hub_lanes(states, scores, ll_t, dg: DeviceGraph):
+        """The emit lanes of the hub states, one per hub arc [B, Eh]:
+        (dst, score with acoustic, olabel, parent slot, dst offsets).  A
+        hub's source score is the best active slot on it (the first such
+        slot is its parent)."""
+        b, v = ll_t.shape
+        eq = states[:, :, None] == dg.hub_src[None, None, :]
+        msk = torch.where(
+            eq & torch.isfinite(scores)[:, :, None], scores[:, :, None],
+            torch.tensor(INF, device=eq.device),
+        )                                                  # [B, K, H]
+        hub_score = msk.amin(dim=1)                        # [B, H]
+        hub_parent = msk.argmin(dim=1)                     # first minimum
+        hp = dg.hub_packed
+        arc_hub = dg.hub_of_arc.long()
+        col = (hp[:, 0] - 1).clamp(0, v - 1).long()
+        score = (hub_score[:, arc_hub] + _bits_to_f32(hp[:, 2])[None, :]
+                 - scale * ll_t[:, col])
+        eh = hp.shape[0]
+        return (hp[None, :, 3].expand(b, eh), score,
+                hp[None, :, 1].expand(b, eh), hub_parent[:, arc_hub],
+                hp[None, :, 4:4 + n_off].expand(b, eh, n_off))
+
     def frame(carry, ll_t, act, dg: DeviceGraph):
         states, scores, offs, overflow = carry
         b, v = ll_t.shape
+        parent_e = None
         if dense:
             dst, pscore, il, ol, d_offs = _expand_dense(
                 states, scores, dg.emit_rows
             )
+        elif m_e > 0:
+            dst, pscore, il, ol, d_offs, parent_e, arc_of = _expand_compact(
+                offs, scores, dg.emit_packed, 0, m_e
+            )
+            overflow = overflow + arc_of
         else:
             dst, pscore, il, ol, d_offs = _expand(
                 offs, scores, dg.emit_packed, d_e, which=0
@@ -487,9 +617,20 @@ def make_beam_decoder(
         pscore = torch.where(
             torch.isfinite(pscore), pscore + ac, torch.full_like(pscore, INF)
         )
-        d_eff = pscore.shape[1] // k
-        e_states, e_scores, e_idx = _dedup(dst, pscore)
-        parent = torch.div(e_idx, d_eff, rounding_mode="floor").int()
+        if parent_e is None:
+            parent_e = _slot_of_lane(b, pscore.shape[1], pscore.device)
+        if has_hubs:
+            # hub lanes after the gathered ones: lane order, and with it
+            # the merge's tie order, is the JAX package's
+            lanes = hub_lanes(states, scores, ll_t, dg)
+            dst, pscore, ol, parent_e, d_offs = (
+                torch.cat([a, h], dim=1) for a, h in zip(
+                    (dst, pscore, ol, parent_e, d_offs), lanes))
+        if cfg.light_emit_dedup:
+            e_states, e_scores, e_idx = _topk_prune(dst, pscore, k)
+        else:
+            e_states, e_scores, e_idx = _dedup(dst, pscore)
+        parent = parent_e.gather(1, e_idx).int()
         e_offs = _take_rows(d_offs, e_idx)
         emit_ol = torch.where(
             torch.isfinite(e_scores), ol.gather(1, e_idx),

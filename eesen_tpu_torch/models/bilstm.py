@@ -197,6 +197,17 @@ def _plain_scan(
     return ms
 
 
+def _reverse_by_length(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each sequence within its own valid span: x [B, T, D]; the
+    padded tail stays in place.  (The layers flip whole arrays instead;
+    kept for the JAX package's API.)"""
+    b, t_max, _ = x.shape
+    t = torch.arange(t_max, device=x.device).expand(b, t_max)
+    n = lengths.to(x.device).long()[:, None]
+    idx = torch.where(t < n, n - 1 - t, t)
+    return x.gather(1, idx[:, :, None].expand(-1, -1, x.shape[2]))
+
+
 def _direction_scan(
     p: Params, x: torch.Tensor, mask: torch.Tensor, cfg: BiLstmConfig,
     rec_drop_mask: Optional[torch.Tensor] = None,
@@ -289,3 +300,21 @@ def bilstm_layer_tm(
                               cfg.forward_step_dropout, b, t_max,
                               cfg.output_dim, x.device)
     return y * mask[:, :, None]
+
+
+def bilstm_layer(
+    params: Dict[str, Params],
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: BiLstmConfig,
+    *,
+    train: bool = False,
+    rng: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Batch-major wrapper of `bilstm_layer_tm`: x [B, T, D] ->
+    [B, T, 2H] ([B, T, H] when unidirectional), on x's device, with the
+    same `train` / `rng` contract.  The model stack runs time-major end
+    to end."""
+    y = bilstm_layer_tm(params, x.transpose(0, 1), lengths, cfg,
+                        train=train, rng=rng)
+    return y.transpose(0, 1)

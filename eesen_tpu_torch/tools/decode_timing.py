@@ -63,7 +63,7 @@ def main() -> int:
     build.load()
     print(json.dumps({"label": args.label, "card": smoke.card_label()}),
           flush=True)
-    g, lang, lex = smoke.build_graph(2000, 20000)
+    g, lang, lex = smoke.build_graph(2000, 20000)[:3]
     state = {}
     main = smoke.phase_main(dev, {"packed": (g, lang, lex)}, state)
     dec = make_beam_decoder(g, BeamSearchConfig(**smoke.DECODE))

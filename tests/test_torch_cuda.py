@@ -745,7 +745,8 @@ def test_ctc_kernels_are_deterministic(dev):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.parametrize("m,k", [(100, 64), (4096, 512), (14336, 512)])
+@pytest.mark.parametrize("m,k", [(100, 64), (4096, 512), (14336, 512),
+                                 (8192, 5000), (13192, 5000)])
 def test_dedup_kernel_equals_plain(dev, m, k):
     rng = np.random.default_rng(m)
     dst = rng.integers(0, max(m // 3, 2), (8, m)).astype(np.int32)
@@ -763,6 +764,7 @@ def test_dedup_kernel_equals_plain(dev, m, k):
 @pytest.mark.parametrize("m,k", [
     (128, 64), (128, 128), (4096, 64), (4096, 512), (4096, 4096),
     (14336, 64), (14336, 512), (14336, 16384), (16384, 512), (16384, 16384),
+    (8192, 5000), (13192, 5000),
 ])
 def test_dedup_kernel_adversarial(dev, m, k):
     """The cluster kernel equals its plain version bit for bit on every
@@ -810,7 +812,7 @@ def test_dedup_kernel_refuses_wide_rows(dev):
         beam_cuda.dedup_prune(z.int(), z, 8, 1.0)
 
 
-def small_graph():
+def small_graph(hub_threshold=0):
     scfg = SynthConfig(num_phones=5, num_words=20)
     rng = np.random.default_rng(1)
     lex = make_lexicon(scfg, rng)
@@ -821,7 +823,7 @@ def small_graph():
     g = compile_graph(build_tlg(lang.t_fst, build_lg(
         lang.l_fst, arpa_to_fst(estimate_bigram_arpa(sents, vocab=vocab),
                                 lang.words))), max_degree=4,
-        build_closure=True)
+        hub_threshold=hub_threshold, build_closure=True)
     return g, rng
 
 
@@ -841,6 +843,73 @@ def test_decoder_on_card_matches_cpu(dev):
     for (w_d, c_d), (w_c, c_c) in zip(res_d, res_c):
         assert w_d == w_c
         np.testing.assert_allclose(c_d, c_c, rtol=1e-5)
+
+
+def _same_results(got, want, rtol=1e-5):
+    for (w_g, c_g), (w_w, c_w) in zip(got, want):
+        assert w_g == w_w
+        np.testing.assert_allclose(c_g, c_w, rtol=rtol)
+
+
+def test_budgeted_k5000_decode_takes_kernel_2(dev, monkeypatch):
+    """max_active 5000 on the packed layout: unbudgeted, the 20,000-lane
+    emit merge and the 25,000-lane closure merge take the sort route;
+    with budgets of 5000 and 11,000 lanes both merges (5000 and 16,000
+    lanes) take kernel 2,
+    one launch a merge, with overflow 0 and the same words and costs."""
+    monkeypatch.setattr(tbeam, "DENSE_ROWS_BUDGET", 0)
+    g, rng = small_graph()
+    ll = rng.standard_normal((3, 20, 6)).astype(np.float32) * 3.0
+    ll -= np.log(np.exp(ll).sum(-1, keepdims=True))
+    lens = np.array([20, 15, 9])
+    dg = tbeam.DeviceGraph.put(g, device=dev)
+    base = dict(beam=17.0, max_active=5000, acoustic_scale=0.9)
+    before = beam_cuda.launches
+    out0 = tbeam.make_beam_decoder(g, tbeam.BeamSearchConfig(**base))(
+        ll, lens, dg)
+    assert beam_cuda.launches == before
+    before = beam_cuda.launches
+    out1 = tbeam.make_beam_decoder(g, tbeam.BeamSearchConfig(
+        **base, arc_budget_emit=5000, arc_budget_x=11000))(ll, lens, dg)
+    assert beam_cuda.launches - before == 1 + 2 * 20
+    assert int(out1.overflow.sum()) == 0
+    _same_results(tbeam.traceback(out1, lens, g.final_weight),
+                  tbeam.traceback(out0, lens, g.final_weight))
+
+
+def test_hub_decode_on_card_takes_kernel_2(dev):
+    """A hub graph's widened emit merge on kernel 2: the CPU's words and
+    costs."""
+    g, rng = small_graph(hub_threshold=4)
+    assert g.has_hubs
+    ll = rng.standard_normal((3, 20, 6)).astype(np.float32) * 3.0
+    ll -= np.log(np.exp(ll).sum(-1, keepdims=True))
+    lens = np.array([20, 15, 9])
+    dec = tbeam.make_beam_decoder(g, tbeam.BeamSearchConfig(
+        beam=12.0, max_active=32))
+    before = beam_cuda.launches
+    out_d = dec(ll, lens, tbeam.DeviceGraph.put(g, device=dev))
+    assert beam_cuda.launches - before == 1 + 2 * 20
+    out_c = dec(ll, lens, tbeam.DeviceGraph.put(g, device="cpu"))
+    _same_results(tbeam.traceback(out_d, lens, g.final_weight),
+                  tbeam.traceback(out_c, lens, g.final_weight))
+
+
+def test_bilstm_layer_on_card_is_the_time_major_layer(dev):
+    """bilstm_layer [B, T, D] on the card: bilstm_layer_tm's bits,
+    transposed, with one kernel 1 launch a direction."""
+    cfg = tbilstm.BiLstmConfig(input_dim=120, cell_dim=320)
+    params = tbilstm.init_bilstm_layer(torch.Generator().manual_seed(0),
+                                       cfg, dev)
+    x = torch.randn((8, 64, 120), generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    lens = torch.tensor([64, 60, 51, 40, 33, 20, 9, 1])
+    before = lstm_cuda.launches
+    y = tbilstm.bilstm_layer(params, x, lens, cfg)
+    assert lstm_cuda.launches - before == 2
+    want = tbilstm.bilstm_layer_tm(params, x.transpose(0, 1).contiguous(),
+                                   lens, cfg)
+    assert torch.equal(y, want.transpose(0, 1))
 
 
 def blank_runs(rng, b, t, v):
