@@ -192,7 +192,17 @@ Phases, one JSON line each:
           gathered): main's words, costs within 1e-4, kernels lstm_fwd
           and dedup_prune launched on each rank; s a step and the
           all-reduce's share (the ranks share the card's SMs: not a
-          scaling figure).
+          scaling figure).  The `model` axis, spawned the same way with
+          the grid's sizes: (iii) data=1 x model=2, two ranks, each
+          holding half of every split leaf and taking all 64 rows:
+          loss and every gathered parameter equal bits to this process's
+          64-row step, 8/8/1/1 launches a step on each rank, each rank's
+          shard shapes, the gather of the parameters alone (ms); (iv)
+          data=2 x model=2, four ranks, 32 rows a data index: equal bits
+          to (ii)'s parameters and losses and across ranks, a checkpoint
+          written on this mesh and restored gives the same state, and
+          the sharded decode of main's utterances over "data" and over
+          "model": main's words, costs within 1e-4.
   lstm_v1 the v1 route at the LibriSpeech width and its own: (i) kernel
           lstm_scan_fwd vs its plain version (B=128, T=768, H=640 and
           H=1152, training lengths with a length-0 row; m, c, c_raw at
@@ -316,11 +326,15 @@ TRAIN_STEP_LAUNCHES = {"lstm_fwd": 8, "lstm_bwd": 8, "lstm_scan_fwd": 0,
                        "lstm_scan_bwd": 0, "ctc_alpha": 1, "ctc_beta": 1}
 # the mesh path: (i) Trainer(mesh=...) over NCCL in a world of one,
 # MESH_STEPS steps at the training shapes beside the plain Trainer; (ii)
-# MESH_RANKS ranks on the one card over gloo (NCCL refuses two ranks on
-# one GPU), MESH_RANK_ROWS rows each in f32, held as
+# to (iv) ranks on the one card over gloo (NCCL refuses two ranks on one
+# GPU), (data, model) as MESH_GRIDS gives them, MESH_RANK_ROWS rows a
+# data index of 2 (MESH_ROWS in all) in f32, (ii) held as
 # tests/test_shard_map_step.py holds the JAX step; each spawned run is
 # killed past MESH_TIMEOUT_S
-MESH_STEPS, MESH_RANKS, MESH_RANK_ROWS = 3, 2, 32
+MESH_STEPS, MESH_RANK_ROWS = 3, 32
+MESH_ROWS = 2 * MESH_RANK_ROWS
+MESH_GRIDS = {"two_ranks": (2, 1), "model_axis": (1, 2),
+              "data_model": (2, 2)}
 MESH_RTOL, MESH_ATOL = 1e-4, 1e-5
 MESH_TIMEOUT_S = 300
 MESH_REPS = 5
@@ -2120,13 +2134,79 @@ def mesh_world_of_one(dev, graphs, state):
             "decode_words": [len(w) for w, _ in res]}
 
 
-def mesh_two_ranks(dev, graphs, state):
-    """(ii) Two ranks on the one card over gloo, spawned from this script
-    (`--mesh-rank`): MESH_STEPS steps of 2 x MESH_RANK_ROWS rows in f32
-    held against this process's step over the same rows (loss and
-    parameters at MESH_RTOL / MESH_ATOL, the ranks' parameters equal
-    bits), and the sharded decode of phase main's utterances, 4 a rank:
-    phase main's words, costs within COST_RTOL."""
+def mesh_spawn(work, dev, data: int, model: int):
+    """Ranks 0..data*model-1 of a data x model mesh on `dev` over gloo,
+    spawned as `chip_smoke.py --mesh-rank R PORT DIR DEVICE DATA MODEL`
+    with their inputs in `work`; every one killed past MESH_TIMEOUT_S.
+    -> (seconds from the first start to the last exit, what each rank
+    saved)."""
+    import torch
+
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+                 [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                  str(r), port, work, str(dev), str(data), str(model)],
+                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                 text=True, cwd=ROOT)
+             for r in range(data * model)]
+    try:
+        logs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{data}x{model} rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return spawn_s, [torch.load(os.path.join(work, f"rank{r}.pt"),
+                                weights_only=False)
+                     for r in range(data * model)]
+
+
+def _rank_report(o, name, r):
+    """One rank's training numbers; its launches a step must be 8/8/1/1
+    and its sharded decodes must have run kernels 1 and 2."""
+    per_step = {k: v / MESH_STEPS for k, v in o["train_launches"].items()
+                if k != "dedup_prune"}
+    if per_step != TRAIN_STEP_LAUNCHES:
+        raise AssertionError(f"{name} rank {r} launches per step {per_step}")
+    decode_launches = {
+        axis: {k: n[k] for k in ("lstm_fwd", "dedup_prune")}
+        for axis, n in o["decode_launches"].items()}
+    for axis, dl in decode_launches.items():
+        if min(dl.values()) == 0:
+            raise AssertionError(f"{name} rank {r} decode over {axis}: "
+                                 f"launches {dl}")
+    s_step = statistics.median(o["step_s"])
+    return {"losses": o["losses"], "step_s": o["step_s"],
+            "s_per_step": s_step, "allreduce_ms": o["allreduce_ms"],
+            "allreduce_share": o["allreduce_ms"] / 1e3 / s_step,
+            "gather_ms": o["gather_ms"],
+            "gather_share": (None if o["gather_ms"] is None
+                             else o["gather_ms"] / 1e3 / s_step),
+            "shard_shapes": o["shard_shapes"],
+            "train_launches": o["train_launches"],
+            "decode_s": o["decode_s"], "decode_launches": decode_launches}
+
+
+def mesh_ranks(dev, graphs, state):
+    """(ii)-(iv) ranks on the one card over gloo (`mesh_spawn`), each run
+    MESH_STEPS steps of its rows of MESH_ROWS f32 rows, beside this
+    process's step over the MESH_ROWS rows:
+
+    (ii) data=2 x model=1: loss and parameters at MESH_RTOL / MESH_ATOL,
+         the ranks' parameters equal bits; the sharded decode of phase
+         main's utterances, 4 a rank: main's words, costs within
+         COST_RTOL;
+    (iii) data=1 x model=2: loss and gathered parameters equal bits to
+         this process's step (same kernels, same inputs, a data group of
+         one);
+    (iv) data=2 x model=2: gathered parameters and losses equal bits to
+         (ii)'s (the same two-addend sums) and across ranks; a
+         checkpoint round trip; the sharded decode over "data" and over
+         "model": main's words."""
     import pickle
     import shutil
 
@@ -2137,85 +2217,100 @@ def mesh_two_ranks(dev, graphs, state):
     work = os.path.join(ROOT, "tmp", "chip_smoke_mesh")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    runs = {}
     try:
         cfg, st, tx, batch = train_setup(dev, compute_dtype=torch.float32,
                                          state_bf16=False)
-        rows = {k: v[:MESH_RANKS * MESH_RANK_ROWS] for k, v in batch.items()}
+        rows = {k: v[:MESH_ROWS] for k, v in batch.items()}
         step = make_train_step(cfg, tx)
-        losses = []
+        losses, plain_s = [], []
         for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             st, m = step(st, rows, None, LEARN_RATE)
             losses.append(float(m["loss"]))
+            plain_s.append(time.perf_counter() - t0)
         want = ravel(st.params).cpu()
         with open(os.path.join(work, "graph.pkl"), "wb") as f:
             pickle.dump(graphs["packed"][0], f)
         np.savez(os.path.join(work, "main.npz"), arr=state["arr"],
                  lens=state["lens"])
-        port = str(free_port())
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-                     [sys.executable, os.path.abspath(__file__),
-                      "--mesh-rank", str(r), port, work, str(dev)],
-                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                     text=True, cwd=ROOT)
-                 for r in range(MESH_RANKS)]
-        try:
-            logs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        spawn_s = time.perf_counter() - t0
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
-                                     f"{log[-4000:]}")
-        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
-                            weights_only=False)
-                 for r in range(MESH_RANKS)]
+        for name, (data, model) in MESH_GRIDS.items():
+            t0 = time.perf_counter()
+            spawn_s, ranks = mesh_spawn(work, dev, data, model)
+            runs[name] = {"grid": [data, model], "spawn_s": spawn_s,
+                          "ranks": ranks}
+            for r in range(data * model):
+                os.remove(os.path.join(work, f"rank{r}.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if not torch.equal(ranks[0]["params"], ranks[1]["params"]):
-        raise AssertionError("the ranks' parameters differ")
-    out = {"backend": "gloo", "world": MESH_RANKS, "rows_per_rank":
-           MESH_RANK_ROWS, "frames": TRAIN_T, "labels": TRAIN_L,
-           "compute_dtype": "float32", "steps": MESH_STEPS,
-           "losses_single": losses, "spawn_s": spawn_s, "ranks": []}
-    for r, o in enumerate(ranks):
-        param_err = float((o["params"] - want).abs().max())
-        loss_err = max(abs(a - b) / abs(b) for a, b in zip(o["losses"],
-                                                           losses))
-        if not (torch.allclose(o["params"], want, rtol=MESH_RTOL,
-                               atol=MESH_ATOL) and loss_err <= MESH_RTOL):
-            raise AssertionError(f"rank {r}: losses {o['losses']} vs "
-                                 f"{losses}, parameters off by {param_err}")
-        per_step = {k: v / MESH_STEPS for k, v in o["train_launches"].items()
-                    if k != "dedup_prune"}
-        if per_step != TRAIN_STEP_LAUNCHES:
-            raise AssertionError(f"rank {r} launches per step {per_step}")
-        _results_equal(f"sharded decode, rank {r}", o["decode"],
-                       state["hyps"], COST_RTOL)
-        dl = {k: o["decode_launches"][k] for k in ("lstm_fwd", "dedup_prune")}
-        if min(dl.values()) == 0:
-            raise AssertionError(f"rank {r} decode launches {dl}")
-        s_step = statistics.median(o["step_s"])
-        out["ranks"].append({
-            "losses": o["losses"], "loss_rel_err": loss_err,
-            "param_max_abs_err": param_err, "step_s": o["step_s"],
-            "s_per_step": s_step, "allreduce_ms": o["allreduce_ms"],
-            "allreduce_share": o["allreduce_ms"] / 1e3 / s_step,
-            "train_launches": o["train_launches"],
-            "decode_s": o["decode_s"], "decode_launches": dl})
-    state["mesh_rank_launches"] = [r["train_launches"] for r in out["ranks"]]
-    state["mesh_rank_decode_launches"] = [r["decode_launches"]
-                                          for r in out["ranks"]]
-    out.update(rtol=MESH_RTOL, atol=MESH_ATOL, equal_bits_across_ranks=True)
+    out = {"backend": "gloo", "rows": MESH_ROWS, "frames": TRAIN_T,
+           "labels": TRAIN_L, "compute_dtype": "float32",
+           "steps": MESH_STEPS, "losses_single": losses,
+           "s_per_step_single": plain_s}
+    base = runs["two_ranks"]["ranks"][0]
+    for name, run_ in runs.items():
+        ranks = run_.pop("ranks")
+        for o in ranks[1:]:
+            if not torch.equal(o["params"], ranks[0]["params"]):
+                raise AssertionError(f"{name}: the ranks' parameters differ")
+        reports = []
+        for r, o in enumerate(ranks):
+            rep = _rank_report(o, name, r)
+            param_err = float((o["params"] - want).abs().max())
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(o["losses"], losses))
+            rep.update(param_max_abs_err=param_err, loss_rel_err=loss_err)
+            if name == "two_ranks":
+                if not (torch.allclose(o["params"], want, rtol=MESH_RTOL,
+                                       atol=MESH_ATOL)
+                        and loss_err <= MESH_RTOL):
+                    raise AssertionError(
+                        f"{name} rank {r}: losses {o['losses']} vs "
+                        f"{losses}, parameters off by {param_err}")
+            elif name == "model_axis":
+                if not (torch.equal(o["params"], want)
+                        and o["losses"] == losses):
+                    raise AssertionError(
+                        f"{name} rank {r}: not the single step's bits "
+                        f"(losses {o['losses']} vs {losses}, parameters "
+                        f"off by {param_err})")
+            else:
+                if not (torch.equal(o["params"], base["params"])
+                        and o["losses"] == base["losses"]):
+                    raise AssertionError(
+                        f"{name} rank {r}: not the data-only mesh's bits")
+                if not o["checkpoint_equal"]:
+                    raise AssertionError(
+                        f"{name} rank {r}: the restored state differs")
+                rep["checkpoint_equal"] = True
+            for axis, res in o["decode"].items():
+                _results_equal(f"{name} rank {r}, decode over {axis}", res,
+                               state["hyps"], COST_RTOL)
+            reports.append(rep)
+        run_["ranks"] = reports
+        run_["s_per_step"] = max(rep["s_per_step"] for rep in reports)
+        out[name] = run_
+    state["mesh_rank_launches"] = {
+        name: [r["train_launches"] for r in out[name]["ranks"]]
+        for name in MESH_GRIDS}
+    state["mesh_rank_decode_launches"] = {
+        name: [r["decode_launches"] for r in out[name]["ranks"]]
+        for name in MESH_GRIDS}
+    out.update(rtol=MESH_RTOL, atol=MESH_ATOL, equal_bits_across_ranks=True,
+               model_axis_equal_bits_to_single=True,
+               data_model_equal_bits_to_two_ranks=True)
     return out
 
 
-def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
-    """One rank of mesh_two_ranks on `device`: its rows of the f32
-    training batch, then its 4 utterances' posteriors and search; writes
-    rank<r>.pt."""
+def mesh_rank(rank: int, port: str, work: str, device: str, data: str,
+              model: str) -> int:
+    """One rank of a `mesh_spawn` run on `device`: its rows of the f32
+    training batch on a data x model mesh; the gather and the all-reduce
+    alone; on a 2 x 2 mesh a checkpoint round trip; then, where the grid
+    has a data axis, its share of main's utterances (posteriors on its
+    data rows, gathered) searched over each axis of the grid that is not
+    of one rank; writes rank<r>.pt."""
     import pickle
 
     import torch
@@ -2226,27 +2321,30 @@ def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
     from eesen_tpu_torch.parallel.distributed import (
         all_gather, init_distributed, psum_,
     )
-    from eesen_tpu_torch.parallel.mesh import make_mesh
+    from eesen_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from eesen_tpu_torch.parallel.sharding import (
-        local_rows, shard_batch, shard_state,
+        gather_params, local_rows, shard_batch, shard_state,
     )
     from eesen_tpu_torch.recipes.run import posteriors
-    from eesen_tpu_torch.training.optim import ravel
-    from eesen_tpu_torch.training.trainer import make_shard_map_train_step
+    from eesen_tpu_torch.training.optim import ravel, tree_leaves
+    from eesen_tpu_torch.training.trainer import (
+        Trainer, TrainerConfig, make_shard_map_train_step,
+    )
 
     dev = torch.device(device)
+    data, model = int(data), int(model)
     if dev.type == "cuda":
         build.load()
     # NCCL refuses two ranks on one GPU: gloo, on the card's tensors
-    init_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank, backend="gloo",
-                     timeout=MESH_TIMEOUT_S)
+    init_distributed(f"127.0.0.1:{port}", data * model, rank,
+                     backend="gloo", timeout=MESH_TIMEOUT_S)
     try:
-        mesh = make_mesh(device=dev)
+        mesh = make_mesh(MeshConfig(data=data, model=model), device=dev)
         cfg, st, tx, batch = train_setup(dev, compute_dtype=torch.float32,
                                          state_bf16=False)
         st = shard_state(st, mesh)
-        rows = shard_batch({k: v[:MESH_RANKS * MESH_RANK_ROWS]
-                            for k, v in batch.items()}, mesh)
+        rows = shard_batch({k: v[:MESH_ROWS] for k, v in batch.items()},
+                           mesh)
         step = make_shard_map_train_step(cfg, tx, mesh)
         losses, step_s = [], []
         reset_counters()
@@ -2258,29 +2356,57 @@ def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         train_launches = counters()
-        params = ravel(st.params)
+        shapes = {}
+        for x in tree_leaves(st.params):
+            key = "x".join(map(str, x.shape))
+            shapes[key] = shapes.get(key, 0) + 1
+        params = ravel(gather_params(st.params, mesh))
+        gather_ms = None
+        if model > 1:
+            gather_ms, _ = _wall_ms(lambda: gather_params(st.params, mesh),
+                                    MESH_REPS)
         bucket = torch.zeros(params.numel() + 2, device=dev)
         allreduce_ms, _ = _wall_ms(lambda: psum_(bucket, mesh), MESH_REPS)
-        with open(os.path.join(work, "graph.pkl"), "rb") as f:
-            g = pickle.load(f)
-        main = np.load(os.path.join(work, "main.npz"))
-        arr, lens = main["arr"], main["lens"]
-        mcfg, mparams, _, log_priors, _ = model_and_inputs(dev)
-        dec = make_sharded_beam_decoder(g, BeamSearchConfig(**DECODE), mesh)
-        dg = DeviceGraph.put(g, device=dev)
-        lo, hi = local_rows(len(lens), mesh)
-        reset_counters()
-        t0 = time.perf_counter()
-        lp = all_gather(posteriors(mparams, mcfg, arr[lo:hi], lens[lo:hi],
-                                   log_priors, dev), mesh)
-        res = traceback(dec(lp, lens, dg), lens, g.final_weight)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        torch.save({"losses": losses, "step_s": step_s,
-                    "params": params.cpu(), "allreduce_ms": allreduce_ms,
-                    "train_launches": train_launches, "decode": res,
-                    "decode_s": decode_s, "decode_launches": counters()},
-                   os.path.join(work, f"rank{rank}.pt"))
+        res = {"losses": losses, "step_s": step_s, "params": params.cpu(),
+               "shard_shapes": shapes, "gather_ms": gather_ms,
+               "allreduce_ms": allreduce_ms,
+               "train_launches": train_launches, "decode": {},
+               "decode_s": {}, "decode_launches": {}}
+        if data > 1 and model > 1:
+            tcfg = TrainerConfig(model=cfg, optimizer=train_opt(), seed=SEED,
+                                 checkpoint_dir=os.path.join(work, "ckpt"))
+            saver = Trainer(tcfg, mesh=mesh)
+            saver.state = st
+            saver.save_checkpoint(1)
+            loaded = Trainer(tcfg, mesh=mesh)
+            loaded.restore_checkpoint(1)
+            res["checkpoint_equal"] = loaded.state.step == st.step and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves((loaded.state.params,
+                                 loaded.state.opt_state.inner)),
+                    tree_leaves((st.params, st.opt_state.inner))))
+        if data > 1:
+            with open(os.path.join(work, "graph.pkl"), "rb") as f:
+                g = pickle.load(f)
+            main = np.load(os.path.join(work, "main.npz"))
+            arr, lens = main["arr"], main["lens"]
+            mcfg, mparams, _, log_priors, _ = model_and_inputs(dev)
+            dg = DeviceGraph.put(g, device=dev)
+            lo, hi = local_rows(len(lens), mesh)
+            for axis in ("data", "model")[:1 + (model > 1)]:
+                dec = make_sharded_beam_decoder(g, BeamSearchConfig(**DECODE),
+                                                mesh, axis=axis)
+                reset_counters()
+                t0 = time.perf_counter()
+                lp = all_gather(posteriors(mparams, mcfg, arr[lo:hi],
+                                           lens[lo:hi], log_priors, dev),
+                                mesh)
+                res["decode"][axis] = traceback(dec(lp, lens, dg), lens,
+                                                g.final_weight)
+                torch.cuda.synchronize()
+                res["decode_s"][axis] = time.perf_counter() - t0
+                res["decode_launches"][axis] = counters()
+        torch.save(res, os.path.join(work, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -2288,7 +2414,7 @@ def mesh_rank(rank: int, port: str, work: str, device: str) -> int:
 
 def phase_mesh(dev, graphs, state):
     return {"world_of_one": mesh_world_of_one(dev, graphs, state),
-            "two_ranks": mesh_two_ranks(dev, graphs, state)}
+            **mesh_ranks(dev, graphs, state)}
 
 
 def _nbytes(tensors) -> int:
@@ -3958,17 +4084,21 @@ def _cli_fbank(state, run):
 def kernels_report(state, timing):
     def mesh_launches(name):
         """A kernel's launches on the mesh path (phase mesh): training in
-        a world of one (3 steps) and on each of the two ranks; the
-        sharded decode likewise."""
+        a world of one (3 steps) and on each rank of each spawned grid
+        (ii)-(iv); the sharded decodes likewise, by axis."""
         out = {}
         if name != "dedup_prune":
             out["mesh_train_launches"] = state["mesh_launches"][name]
-            out["mesh_rank_train_launches"] = [
-                r[name] for r in state["mesh_rank_launches"]]
+            out["mesh_rank_train_launches"] = {
+                grid: [r[name] for r in ranks]
+                for grid, ranks in state["mesh_rank_launches"].items()}
         if name in ("lstm_fwd", "dedup_prune"):
             out["mesh_decode_launches"] = state["mesh_decode_launches"][name]
-            out["mesh_rank_decode_launches"] = [
-                r[name] for r in state["mesh_rank_decode_launches"]]
+            out["mesh_rank_decode_launches"] = {
+                grid: [{axis: n[name] for axis, n in r.items()}
+                       for r in ranks]
+                for grid, ranks in state["mesh_rank_decode_launches"].items()
+                if any(ranks)}
         return out
 
     def cli_launches(name):
@@ -4165,7 +4295,7 @@ def run(dev) -> bool:
 
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-rank"]:          # spawned by phase mesh
-        return mesh_rank(int(sys.argv[2]), *sys.argv[3:6])
+        return mesh_rank(int(sys.argv[2]), *sys.argv[3:8])
     try:
         import torch
         import eesen_tpu_torch  # noqa: F401  (also turns TF32 off)

@@ -723,28 +723,30 @@ def make_sharded_beam_decoder(
     graph: CompiledGraph, cfg: BeamSearchConfig, mesh: Mesh,
     axis: str = "data",
 ):
-    """Job-sharded decode over the mesh's `data` axis, the graph on every
-    rank (the reference's nj job shards, steps/decode_ctc_lat.sh:99-104).
+    """Job-sharded decode over the mesh's `axis` ("data" or "model"), the
+    graph on every rank (the reference's nj job shards,
+    steps/decode_ctc_lat.sh:99-104).
 
     Returns fn(loglikes [B, T, V], lengths [B], dg) -> BeamOutputs of the
     whole batch, on every rank, as the JAX function's global arrays are.
-    Each rank searches its block of B / (data size) rows with
+    As the JAX function shards rows over `mesh[axis]` and replicates them
+    over the other axis, each rank searches block i of B / size rows
+    ((size, i): the axis's size and the rank's index on it) with
     make_beam_decoder, with no communication during the search; the
-    outputs are then all-gathered on their batch axis (dim 1 of the
-    [T, B, K(, L)] fields, dim 0 of init_olabels and overflow).  B must
-    divide evenly."""
-    if axis != "data":
-        raise ValueError(f"the mesh shards batches over 'data', not {axis!r}")
+    outputs are then all-gathered over the axis's group on their batch
+    axis (dim 1 of the [T, B, K(, L)] fields, dim 0 of init_olabels and
+    overflow).  B must divide evenly."""
+    mesh.axis(axis)                 # raises for an axis the mesh lacks
     base = make_beam_decoder(graph, cfg)
 
     def decode(loglikes, lengths, dg: DeviceGraph) -> BeamOutputs:
         loglikes = as_tensor(loglikes, torch.float32)
         lengths = as_tensor(lengths, torch.int64)
-        lo, hi = local_rows(loglikes.shape[0], mesh)
+        lo, hi = local_rows(loglikes.shape[0], mesh, axis)
         out = base(loglikes[lo:hi], lengths[lo:hi], dg)
 
         def gather(x, dim):
-            return all_gather(x, mesh, dim)
+            return all_gather(x, mesh, dim, axis)
 
         return BeamOutputs(
             gather(out.states, 1), gather(out.scores, 1),

@@ -6,6 +6,7 @@ from eesen_tpu_torch.parallel.sharding import (
     shard_params,
     shard_state,
     shard_batch,
+    gather_params,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "shard_params",
     "shard_state",
     "shard_batch",
+    "gather_params",
 ]

@@ -14,7 +14,9 @@ process group:
 - `global_batch` places a rank's local rows, which are already its shard
   of the global batch;
 - `psum_`, `all_gather` and `barrier` are the collectives the trainer
-  and the sharded decoder use; without a process group they do nothing.
+  and the sharded decoder use, each over a named axis of the mesh (the
+  ranks of this rank's data or model group) or, for `barrier`, over the
+  whole mesh; without a process group they do nothing.
 
     torchrun --nproc_per_node=N train.py    # train.py: init_distributed(),
                                             # Trainer(cfg, mesh=make_mesh())
@@ -114,23 +116,28 @@ def global_batch(local_batch, mesh: Mesh) -> Dict[str, torch.Tensor]:
             if k in batch_pspec()}
 
 
-def psum_(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """x summed over `data`, in place."""
-    if initialized():
-        dist.all_reduce(x, group=mesh.group)
+def psum_(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> torch.Tensor:
+    """x summed over the ranks of this rank's `axis` group, in place."""
+    runs, group = mesh.axis_group(axis)
+    if runs:
+        dist.all_reduce(x, group=group)
     return x
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
-    """Every rank's x, concatenated in rank order along `dim`."""
-    if not initialized():
+def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 0,
+               axis: str = "data") -> torch.Tensor:
+    """The x of every rank of this rank's `axis` group, concatenated in
+    axis order along `dim`."""
+    runs, group = mesh.axis_group(axis)
+    if not runs:
         return x
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.data)]
-    dist.all_gather(parts, x, group=mesh.group)
+    parts = [torch.empty_like(x) for _ in range(mesh.axis(axis)[0])]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim)
 
 
 def barrier(mesh: Mesh) -> None:
+    """Every rank of the mesh waits for all the others."""
     if initialized():
         dist.barrier(group=mesh.group)

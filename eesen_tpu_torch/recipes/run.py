@@ -32,9 +32,12 @@ blank-dominated runs of the prior-divided posteriors are merged first
 Streaming is models/streaming.py; greedy decoding decoder/greedy.py.
 The lattice stages (`decode_lattices`, `score_sweep`) search on the
 device and build, prune and determinize the lattices on the host
-(decoder/{lattice,clat}).  `RecipeRun(mesh=...)` trains data-parallel
-(parallel/, training/trainer.Trainer); every rank runs the recipe in
-the same work_dir, and the files it writes are renamed into place.
+(decoder/{lattice,clat}).  `RecipeRun(mesh=...)` trains on the mesh
+(parallel/, training/trainer.Trainer; on a `model` axis each rank holds
+its blocks of the parameters); every rank runs the recipe in the same
+work_dir, priors, model.pkl and the decode read the whole parameters
+(`Trainer.full_params`), and the files it writes are renamed into
+place.
 """
 
 from __future__ import annotations
@@ -200,7 +203,9 @@ class RecipeRun:
     """One corpus run under `work_dir`: each stage is a method, so partial
     runs and resumes are natural.  Everything runs on `device`; a `mesh`
     (parallel.make_mesh) reaches the Trainer in `train`, and nothing else,
-    as in the JAX package (pass device=mesh.device with it)."""
+    as in the JAX package (pass device=mesh.device with it); what is
+    written and decoded after it is the whole parameters on every
+    rank."""
 
     def __init__(
         self,
@@ -404,7 +409,7 @@ class RecipeRun:
             [train_labels[u.key] for u in tr_utts], num_targets
         )
         self.log_priors = compute_log_priors(counts, ClassPriorOptions())
-        self.params = self.trainer.state.params
+        self.params = self.trainer.full_params()
         self.model_cfg = model_cfg
         params = self.params
         saved = {"params": tree_unflatten(
@@ -443,7 +448,7 @@ class RecipeRun:
 
     def _decode_params(self):
         if self.params is None and self.trainer is not None:
-            self.params = self.trainer.state.params
+            self.params = self.trainer.full_params()
             self.model_cfg = self.trainer.cfg.model
         if self.params is None:
             self.load_model()

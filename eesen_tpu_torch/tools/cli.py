@@ -891,7 +891,7 @@ def cmd_train(args) -> int:
         )
         np.savetxt(args.label_counts, counts)
     save_model_blob(args.model_out,
-                    {"params": trainer.state.params, "config": model_cfg})
+                    {"params": trainer.full_params(), "config": model_cfg})
     last = history[max(history)]
     print(
         f"train: {len(history)} epochs, final train_acc "

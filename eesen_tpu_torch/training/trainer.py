@@ -10,14 +10,19 @@ schedule, early stop and resume (steps/train_ctc_parallel.sh:132-190):
   the LSTM and CTC kernels, clip, update.
 - The greedy token-accuracy monitor (src/net/ctc-loss.cc:235 ErrorRateMSeq)
   is a device argmax + host edit distance, as in the reference.
-- `make_shard_map_train_step` is the data-parallel step of the mesh path
-  (parallel/): each rank runs the same kernels on its rows, and one
-  all-reduce a step sums the gradients over `data` (the JAX package's
-  `psum` in `shard_map`; the reference averaged models through files,
-  src/net/communicator.h).
+- `make_shard_map_train_step` is the step of the mesh path (parallel/):
+  each rank runs the same kernels on its rows, and one all-reduce a step
+  sums the gradients over `data` (the JAX package's `psum` in
+  `shard_map`; the reference averaged models through files,
+  src/net/communicator.h).  On a mesh with a `model` axis each rank holds
+  its blocks of the parameters; the step gathers them over its model
+  group, runs at full width (the JAX package leaves `model` to XLA, which
+  gathers the weights around a pallas_call), and keeps its blocks of the
+  update.
 - `Trainer.fit` runs the newbob epoch loop, with checkpoints written by
   `torch.save` (the JAX package uses orbax) and the same `sched.json`;
-  under a mesh only rank 0 writes them.
+  under a mesh only rank 0 writes them, always with the whole
+  parameters.
 
 Everything runs on `device`, "cuda" unless the caller asks for "cpu", or
 on the mesh's device.
@@ -41,7 +46,9 @@ from eesen_tpu_torch.ops.ce import ce_loss
 from eesen_tpu_torch.ops.ctc import ctc_loss
 from eesen_tpu_torch.parallel.distributed import all_gather, barrier, psum_
 from eesen_tpu_torch.parallel.mesh import Mesh
-from eesen_tpu_torch.parallel.sharding import shard_batch, shard_state
+from eesen_tpu_torch.parallel.sharding import (
+    gather_params, local_shards, shard_batch, shard_state,
+)
 from eesen_tpu_torch.training.metrics import EpochReport, token_error_counts
 from eesen_tpu_torch.training.optim import (
     OptimizerConfig, Optimizer, OptState, apply_updates, make_optimizer,
@@ -170,18 +177,24 @@ def make_shard_map_train_step(
     loss: str = "ctc",
     with_argmax: bool = False,
 ) -> Callable:
-    """The data-parallel train step (the JAX package's shard_map step,
+    """The mesh's train step (the JAX package's shard_map step,
     `local_step`): train_step(state, batch, rng, learn_rate,
     with_argmax=None) -> (state, metrics) on each rank, with `batch` this
-    rank's rows (`parallel.shard_batch`) and `state` replicated
-    (`parallel.shard_state`).
+    rank's rows (`parallel.shard_batch`) and `state` placed by
+    `parallel.shard_state`.
 
+    - On a mesh with a `model` axis the parameters are first gathered over
+      the rank's model group (`parallel.gather_params`, one flat bucket),
+      and the step runs on the whole tree; the returned parameters are the
+      rank's blocks again (`parallel.local_shards`).  The ranks of a data
+      group compute the same bits.
     - The objective is normalized by the GLOBAL frame count (frames, and
-      CE's `correct`, are all-reduced before the division).
+      CE's `correct`, are all-reduced over `data` before the division).
     - The gradients are summed over `data` in one all-reduce of one flat
-      bucket, which also carries the loss and the objective sum; the
-      optimizer then clips and updates the summed gradient, so every rank
-      applies the same update and the parameters stay replicated.
+      bucket in `ravel`'s leaf order, which also carries the loss and the
+      objective sum; the optimizer then clips and updates the summed
+      gradient on the whole flat vector (replicated, as in JAX), so every
+      rank applies the same update.
     - `argmax` is gathered over `data`, so the metrics are those of the
       whole batch on every rank.
     - `rng` is the same generator on every rank, as the JAX step's key is
@@ -195,6 +208,7 @@ def make_shard_map_train_step(
                    with_argmax: Optional[bool] = None):
         if with_argmax is None:
             with_argmax = argmax_default
+        state = state._replace(params=gather_params(state.params, mesh))
         leaves = [p.detach().requires_grad_() for p in
                   tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
@@ -213,8 +227,9 @@ def make_shard_map_train_step(
         metrics.update(loss=bucket[-2], obj_sum=bucket[-1])
         if "argmax" in metrics:
             metrics["argmax"] = all_gather(metrics["argmax"], mesh)
-        return _update(tx, state, unravel(state.params, bucket[:-2]),
-                       learn_rate), metrics
+        new = _update(tx, state, unravel(state.params, bucket[:-2]),
+                      learn_rate)
+        return new._replace(params=local_shards(new.params, mesh)), metrics
 
     return train_step
 
@@ -225,9 +240,13 @@ def make_eval_step(
 ) -> Callable:
     """Cross-validation step (no backprop): the reference's
     --cross-validate=true mode (train-ctc-parallel.cc:116-119,206).  Under
-    a mesh the metrics are summed (argmax gathered) over `data`."""
+    a mesh `params` are the rank's blocks, as the Trainer holds them
+    (gathered over `model` first), and the metrics are summed (argmax
+    gathered) over `data`."""
 
     def eval_step(params, batch):
+        if mesh is not None:
+            params = gather_params(params, mesh)
         with torch.no_grad():
             _, metrics = _loss_and_metrics(
                 params, batch, model_cfg, None, False, loss
@@ -265,10 +284,12 @@ class Trainer:
     (seeded from cfg.seed too), as the JAX trainer splits its key.
 
     With a `mesh` (parallel.make_mesh) the trainer runs on the mesh's
-    device (not `device`): the state is replicated from rank 0, each step
+    device (not `device`): the state is rank 0's, placed by shard_state
+    (on a `model` axis `state.params` holds the rank's blocks), each step
     is make_shard_map_train_step on this rank's rows of every global
     batch, and the epoch reports, so the newbob decisions, are the same
-    on every rank.  Only rank 0 writes checkpoints."""
+    on every rank.  `full_params()` gives the whole parameters.  Only
+    rank 0 writes checkpoints, which hold the whole tensors."""
 
     def __init__(self, cfg: TrainerConfig, device="cuda",
                  mesh: Optional[Mesh] = None):
@@ -290,6 +311,15 @@ class Trainer:
         self.eval_step = make_eval_step(cfg.model, loss=cfg.loss, mesh=mesh)
         self.sched = NewbobScheduler(cfg.newbob)
         self.rng = split_generator(torch.Generator().manual_seed(cfg.seed))
+
+    def full_params(self):
+        """The whole parameter tree, the accessor for every reader of the
+        trained model (decode, model files): on a mesh with a `model` axis
+        it is gathered over the rank's model group, so every rank of the
+        mesh calls it; otherwise it is `state.params` itself."""
+        if self.mesh is None:
+            return self.state.params
+        return gather_params(self.state.params, self.mesh)
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         return {
@@ -442,17 +472,19 @@ class Trainer:
     def save_checkpoint(self, epoch: int) -> None:
         """epoch_<N>/state.pt (parameters, optimizer state, step) and
         sched.json, each written under a private name and renamed into
-        place.  Under a mesh rank 0 writes them and every rank waits for
-        it, so that any rank can restore them next."""
+        place.  Under a mesh every rank takes part in gathering the whole
+        parameters, rank 0 writes them and every rank waits for it, so
+        that any rank can restore them next: the files do not depend on
+        the mesh's shape."""
+        st = self.state._replace(params=self.full_params())
         if self.mesh is None or self.mesh.rank == 0:
-            self._write_checkpoint(epoch)
+            self._write_checkpoint(epoch, st)
         if self.mesh is not None:
             barrier(self.mesh)
 
-    def _write_checkpoint(self, epoch: int) -> None:
+    def _write_checkpoint(self, epoch: int, st: TrainState) -> None:
         path = self._ckpt_path(epoch)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        st = self.state
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save({
             "params": st.params,
@@ -467,10 +499,15 @@ class Trainer:
         os.replace(f"{sched}.tmp", sched)
 
     def restore_checkpoint(self, epoch: int) -> None:
+        """The state of epoch_<N>/state.pt (whole tensors; under a mesh
+        each rank keeps its blocks) and sched.json."""
         d = torch.load(self._ckpt_path(epoch), map_location=self.device,
                        weights_only=True)
+        params = d["params"]
+        if self.mesh is not None:
+            params = local_shards(params, self.mesh)
         self.state = TrainState(
-            d["params"],
+            params,
             OptState(d["opt_state"]["hyperparams"], d["opt_state"]["inner"]),
             int(d["step"]),
         )

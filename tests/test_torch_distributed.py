@@ -4,7 +4,10 @@ port's data-parallel step, Trainer.fit, the sharded decoder and
 RecipeRun(mesh=...); the test's own process holds them against the JAX
 package on a 2-device data mesh of the conftest's virtual CPU devices
 (tests/test_shard_map_step.py, tests/test_beam.py), and against the
-port's single-process runs.  Also init_distributed's errors."""
+port's single-process runs.  The same two ranks as a 1 x 2 mesh (the
+parameters split over `model`) against the single-process step in bits.
+Also init_distributed's errors.  Four ranks on a 2 x 2 mesh are
+tests/test_torch_model_axis.py."""
 
 import os
 import socket
@@ -31,6 +34,7 @@ from eesen_tpu_torch.decoder import beam as tbeam
 from eesen_tpu_torch.io.datadir import DataDir as TDataDir
 from eesen_tpu_torch.models import model as tmodel
 from eesen_tpu_torch.parallel import distributed as tdist
+from eesen_tpu_torch.parallel import sharding as tsharding
 from eesen_tpu_torch.recipes import run as trun
 from eesen_tpu_torch.training import optim as toptim
 from eesen_tpu_torch.training import trainer as ttrainer
@@ -45,7 +49,7 @@ from tests.test_torch_train import (
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# each two-process run, start to end; both ranks are killed past it
+# each run of ranks, start to end; every rank is killed past it
 RUN_TIMEOUT_S = 120
 # the DP-step tolerance with which tests/test_shard_map_step.py holds JAX
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -63,7 +67,8 @@ from eesen_tpu_torch.decoder.beam import (
 from eesen_tpu_torch.parallel.distributed import (
     global_batch, host_shard, init_distributed, is_coordinator, psum_)
 from eesen_tpu_torch.parallel.mesh import MeshConfig, make_mesh
-from eesen_tpu_torch.parallel.sharding import shard_batch
+from eesen_tpu_torch.parallel.sharding import (
+    gather_params, shard_batch, shard_state)
 from eesen_tpu_torch.recipes.run import RecipeRun
 from eesen_tpu_torch.training import trainer as tr
 from eesen_tpu_torch.training.optim import make_optimizer, tree_leaves
@@ -76,7 +81,9 @@ out = {"mesh": (mesh.data, mesh.rank), "coordinator": is_coordinator(),
        "host_shard": host_shard(list(range(10)))}
 for cfg in (MeshConfig(data=4), MeshConfig(model=2)):
     try:
-        make_mesh(cfg, device="cpu")
+        m = make_mesh(cfg, device="cpu")
+        out.setdefault("meshes", []).append(
+            (m.data, m.model, m.rank, m.data_index, m.model_index))
     except Exception as e:
         out.setdefault("mesh_errors", []).append((type(e).__name__, str(e)))
 
@@ -103,6 +110,21 @@ def dp_steps(case):
 
 out["steps"] = dp_steps("steps")
 out["dropout"] = dp_steps("dropout")
+
+# (c) the same steps on a 1 x 2 mesh: the parameters split over `model`
+model_mesh = make_mesh(MeshConfig(model=2), device="cpu")
+c = inp["steps"]
+step = tr.make_shard_map_train_step(
+    c["cfg"], make_optimizer(c["opt"]), model_mesh, with_argmax=True)
+state, rows, metrics = (shard_state(c["state"], model_mesh),
+                        shard_batch(c["batch"], model_mesh), [])
+for _ in c["seeds"]:
+    state, m = step(state, rows, None, c["lr"])
+    metrics.append(m)
+out["model_steps"] = {
+    "shards": tree_leaves(state.params),
+    "params": tree_leaves(gather_params(state.params, model_mesh)),
+    "inner": state.opt_state.inner, "metrics": metrics}
 
 # (d) job-sharded decode
 d = inp["decode"]
@@ -156,15 +178,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-class TwoRanks:
-    """Two worker processes over gloo; `results()` waits for both (at most
-    RUN_TIMEOUT_S, then kills both) and loads what each rank saved."""
+class Ranks:
+    """`n` worker processes of `worker` (a script's text; argv: rank, port,
+    repo root, work dir) over gloo; `results()` waits for all of them (at
+    most `timeout` seconds, then kills them all) and loads what each rank
+    saved as rank<r>.pt."""
 
-    def __init__(self, work):
-        self.work = work
+    def __init__(self, work, n=2, worker=WORKER, timeout=RUN_TIMEOUT_S):
+        self.work, self.n, self.timeout = work, n, timeout
         script = os.path.join(work, "worker.py")
         with open(script, "w") as f:
-            f.write(WORKER)
+            f.write(worker)
         port = str(free_port())
         env = dict(os.environ, OMP_NUM_THREADS="1")
         self.procs = [
@@ -172,7 +196,7 @@ class TwoRanks:
                 [sys.executable, "-I", script, str(r), port, ROOT, work],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
                 cwd=ROOT)
-            for r in range(2)
+            for r in range(n)
         ]
         self._out = None
 
@@ -181,7 +205,7 @@ class TwoRanks:
             logs = []
             try:
                 for p in self.procs:
-                    logs.append(p.communicate(timeout=RUN_TIMEOUT_S)[0]
+                    logs.append(p.communicate(timeout=self.timeout)[0]
                                 .decode())
             finally:
                 for p in self.procs:
@@ -192,7 +216,7 @@ class TwoRanks:
             self._out = [
                 torch.load(os.path.join(self.work, f"rank{r}.pt"),
                            weights_only=False)
-                for r in range(2)
+                for r in range(self.n)
             ]
         return self._out
 
@@ -288,7 +312,7 @@ def cases(tlg, corpus, tmp_path_factory):  # noqa: F811
     return dict(inputs=inputs, jax=dict(jm=jm, jo=jo, jstate=jstate,
                                         jm_d=jm_d, jstate_d=jstate_d,
                                         graph=g),
-                ranks=TwoRanks(work), work=work)
+                ranks=Ranks(work), work=work)
 
 
 def jax_data_mesh():
@@ -312,9 +336,10 @@ def test_global_batch_over_two_ranks(cases):
         assert o["global_sum"] == (4 * 1.0 + 4 * 2.0) * 6
         assert o["global_keys"] == ["feat_lengths", "feats"]
         assert o["mesh_errors"] == [
-            ("ValueError", "mesh 4x1 != device count 2"),
-            ("NotImplementedError", o["mesh_errors"][1][1])]
-        assert "ROADMAP.md" in o["mesh_errors"][1][1]
+            ("ValueError", "mesh 4x1 != device count 2")]
+        # MeshConfig(model=2) on two ranks: a 1 x 2 mesh, rank r at data
+        # index 0 and model index r
+        assert o["meshes"] == [(1, 2, r, 0, r)]
 
 
 def test_dp_steps_match_jax_shard_map(cases):
@@ -347,6 +372,35 @@ def test_dp_steps_match_jax_shard_map(cases):
                         jax.tree_util.tree_leaves(state.params)):
             np.testing.assert_allclose(a.numpy(), np.asarray(c),
                                        rtol=STEP_RTOL, atol=STEP_ATOL)
+
+
+def test_model_axis_steps_on_two_ranks_are_the_plain_step(cases):
+    """3 steps on a 1 x 2 mesh (each rank holds half of every split leaf,
+    both take all the rows) give the single-process step's bits: loss,
+    metrics, the gathered parameters and the flat accumulator; rank r
+    holds block r of each leaf that `model` splits."""
+    c = cases["inputs"]["steps"]
+    step = ttrainer.make_train_step(c["cfg"], toptim.make_optimizer(c["opt"]),
+                                    with_argmax=True)
+    state, x, want = c["state"], to_torch(c["batch"]), []
+    for _ in range(STEPS):
+        state, m = step(state, x, None, LR)
+        want.append(m)
+    whole = toptim.tree_leaves(state.params)
+    for r, o in enumerate(cases["ranks"].results()):
+        got = o["model_steps"]
+        for g, w in zip(got["metrics"], want):
+            assert sorted(g) == sorted(w)
+            for k in w:
+                assert torch.equal(g[k], w[k]), k
+        assert_ranks_equal(got["params"], whole)
+        assert torch.equal(got["inner"]["trace"],
+                           state.opt_state.inner["trace"])
+        for a, w in zip(got["shards"], whole):
+            spec = tsharding.leaf_pspec(w)
+            if "model" in spec:
+                w = w.chunk(2, spec.index("model"))[r]
+            assert torch.equal(a, w)
 
 
 def test_dp_dropout_masks_replicate_in_the_port(cases):

@@ -73,8 +73,12 @@ def test_make_mesh_of_one_process():
 @pytest.mark.parametrize("cfg", [tmesh.MeshConfig(model=2),
                                  tmesh.MeshConfig(data=1, model=4)])
 def test_model_axis_raises(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmesh.make_mesh(cfg, device="cpu")
+    """A model axis larger than a world of one raises JAX's ValueError,
+    with its message, as make_mesh on one device does."""
+    want = outcome(lambda: jmesh.make_mesh(
+        jmesh.MeshConfig(cfg.data, cfg.model), devices=jax.devices()[:1]))
+    got = outcome(lambda: tmesh.make_mesh(cfg, device="cpu"))
+    assert want[0] is ValueError and got == want
 
 
 def test_make_mesh_defaults_to_cuda(monkeypatch):
@@ -238,7 +242,12 @@ def test_sharded_decoder_of_one_process_is_the_decoder(tlg):  # noqa: F811
     got = tbeam.make_sharded_beam_decoder(g, cfg, cpu_mesh())(ll, lens, dg)
     for a, c in zip(want, got):
         assert a.dtype == c.dtype and torch.equal(a, c)
-    with pytest.raises(ValueError, match="over 'data'"):
-        tbeam.make_sharded_beam_decoder(g, cfg, cpu_mesh(), axis="model")
+    # a world of one's model axis holds every row too
+    by_model = tbeam.make_sharded_beam_decoder(g, cfg, cpu_mesh(),
+                                               axis="model")(ll, lens, dg)
+    for a, c in zip(want, by_model):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+    with pytest.raises(ValueError, match="not 'batch'"):
+        tbeam.make_sharded_beam_decoder(g, cfg, cpu_mesh(), axis="batch")
     with pytest.raises(ValueError, match="3 rows does not split"):
         tbeam.make_sharded_beam_decoder(g, cfg, rank_mesh(0))(ll, lens, dg)
