@@ -148,6 +148,21 @@ Phases, one JSON line each:
           (40 bins) on 8 of the frontend phase's waves, card against
           --device cpu within FE_TOL above FE_MEL_FLOOR.  Each command's
           seconds and launches.
+  examples the end-to-end recipe scripts (eesen_tpu_torch/examples/, in
+          this process, files under tmp/chip_smoke_examples): (i)
+          toy_recipe.main on the card, its default: kernels lstm_fwd,
+          lstm_bwd, ctc_alpha, ctc_beta and dedup_prune launched, a finite
+          WER; (ii) stress_recipe.main through tools/stress_timing.run at
+          EXAMPLES_STRESS_ARGS (1,200 / 32 / 12 utterances, a 20,000-
+          sentence trigram LM over the full 20,000-word lexicon, 2 repeats
+          an epoch): the parity battery passes (the sweep at the decode
+          acwt equals the direct re-decode, the blank-skip guard ran on 6
+          utterances, const-arpa rescoring agrees with the G-fst automaton
+          on 10 of 10 lattices); training launches 8 lstm_fwd per CTC
+          launch and lstm_bwd in eights; each decode stage 8 lstm_fwd a
+          chunk and kernel dedup_prune where both merges fit it.  Per
+          stage the seconds, launches, peak memory and decode ms per
+          frame; the TLG, its merge widths and the peak live arcs.
   lstm_bwd at the training shapes (B=128, T=768, H=320, D in {120, 640},
           mixed lengths with a length-0 row, state_bf16 on and off): first
           kernel lstm_fwd with residuals vs its plain version (m and c at
@@ -234,7 +249,9 @@ Phases, one JSON line each:
           with the recipe's dropout (recurrent 0.2 no_mem_loss and forward
           0.2, per sequence, twiddle): one step on 8 rows on the card and
           on the CPU from the same parameters and generator seed (the same
-          masks; loss and clipped gradients as in train (i)), then one
+          masks; loss and clipped gradients as in train (i)), the model
+          cut to its first LIBRI_DROP_CHECK_LAYERS layers (the CPU's
+          plain scan costs minutes a step at full depth), then one
           step at B=20 (the recipe's num_sequence) on the card: finite
           loss, seconds, peak memory; no LSTM kernel launches (the
           dropout scan runs in torch ops), 1 ctc_alpha, 1 ctc_beta.
@@ -344,6 +361,7 @@ MESH_REPS = 5
 # 10 ms subsampled, so 0.030 audio-s per frame (recipes/config.py:60-65)
 LIBRI_D, LIBRI_H, LIBRI_V = 360, 640, 30
 LIBRI_L, LIBRI_STEPS, LIBRI_DROP_B = 200, 3, 20
+LIBRI_DROP_CHECK_LAYERS = 2
 LIBRI_FRAME_S = 0.030
 # a direction kernels 1 and 3 cannot take: the v1 route, on the cluster
 # designs of kernels 4 and 5; and one past both cluster plans' limits
@@ -1042,29 +1060,6 @@ def _same_outputs(what, got, want):
             raise AssertionError(f"{what}: {name} differs")
 
 
-def _degree_peaks():
-    """Wrap decoder/beam._expand_compact so that the largest live degree
-    total of any row, per table (0 emit, 1 closure), is kept; returns
-    (peaks, restore).  The peaks stay on the device until read."""
-    import torch
-    from eesen_tpu_torch.decoder import beam
-
-    real = beam._expand_compact
-    peaks = {}
-
-    def spy(offs, scores, packed, which, m_budget):
-        deg = torch.where(torch.isfinite(scores), offs[..., 2 * which + 1],
-                          0).sum(dim=1).max()
-        peaks[which] = torch.maximum(peaks.get(which, deg), deg)
-        return real(offs, scores, packed, which, m_budget)
-
-    def restore():
-        beam._expand_compact = real
-
-    beam._expand_compact = spy
-    return peaks, restore
-
-
 def emit_merge_width(graph, k: int, m_e: int = 0) -> int:
     """Lanes of a frame's emit merge by make_beam_decoder's rule: the
     budget (packed layout) or K x the emit row width, plus the hub arcs."""
@@ -1105,6 +1100,7 @@ def phase_options(dev, graphs, state):
     from eesen_tpu_torch.decoder.graph_compile import compile_graph
     from eesen_tpu_torch.models.bilstm import bilstm_layer, bilstm_layer_tm
     from eesen_tpu_torch.ops import beam_cuda
+    from eesen_tpu_torch.tools.stress_timing import degree_peaks
 
     def k2():
         return counters()["dedup_prune"]
@@ -1143,7 +1139,7 @@ def phase_options(dev, graphs, state):
     _same_outputs("approx_top_k", approx, full)
     res_full = traceback(full, lens, g.final_weight)
     bud_cfg = dataclasses.replace(kcfg, **OPT_BUDGETS)
-    peaks, restore = _degree_peaks()
+    peaks, restore = degree_peaks()
     try:
         bud = make_beam_decoder(g, bud_cfg)(ll, lens, dg)
     finally:
@@ -1802,17 +1798,17 @@ def phase_lstm_v1(dev, state):
     return out
 
 
-def libri_config(dropout: bool):
+def libri_config(dropout: bool, num_layers: int = 4):
     """The LibriSpeech char recipe's model (recipes/config.py:152-170):
     4 x 640 over 360-d input, 30 targets (blank + 29 characters), with the
-    recipe's dropout when `dropout`."""
+    recipe's dropout when `dropout` (num_layers cuts its depth)."""
     from eesen_tpu_torch.models.model import AcousticModelConfig
 
     drop = dict(forward_dropout=0.2, recurrent_dropout=0.2,
                 forward_step_dropout=False, recurrent_step_dropout=False,
                 recurrent_dropout_mode="no_mem_loss", twiddle=True)
     return AcousticModelConfig(input_dim=LIBRI_D, cell_dim=LIBRI_H,
-                               num_layers=4, num_targets=LIBRI_V,
+                               num_layers=num_layers, num_targets=LIBRI_V,
                                **(drop if dropout else {}))
 
 
@@ -1919,16 +1915,23 @@ def phase_libri(dev, state):
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "profile": _profile(one_step, CTC_KERNELS)}
     del st, tx, step, holder
-    # (iii) the recipe's dropout: 8 rows card vs CPU with the same masks,
-    # then the recipe's num_sequence rows on the card
+    # (iii) the recipe's dropout: 8 rows card vs CPU with the same masks
+    # (the model's first LIBRI_DROP_CHECK_LAYERS layers), then the
+    # recipe's num_sequence rows on the card at full depth
+    cfg_c = libri_config(dropout=True, num_layers=LIBRI_DROP_CHECK_LAYERS)
+    st_c, tx_c = create_train_state(torch.Generator().manual_seed(SEED),
+                                    cfg_c, opt, device=dev)
+    reset_counters()
+    check = card_vs_cpu_step(make_train_step(cfg_c, tx_c), st_c,
+                             {k: v[:8] for k, v in batch.items()},
+                             gen_seed=SEED + 33)
+    check["launches"] = counters()
+    check["layers"] = LIBRI_DROP_CHECK_LAYERS
+    del st_c
     cfg_d = libri_config(dropout=True)
     st, tx = create_train_state(torch.Generator().manual_seed(SEED), cfg_d,
                                 opt, device=dev)
     step = make_train_step(cfg_d, tx)
-    reset_counters()
-    check = card_vs_cpu_step(step, st, {k: v[:8] for k, v in batch.items()},
-                             gen_seed=SEED + 33)
-    check["launches"] = counters()
     b20 = {k: v[:LIBRI_DROP_B] for k, v in batch.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4081,6 +4084,110 @@ def _cli_fbank(state, run):
             "cpu_audio_s_per_s": audio_s / run.seconds["fbank_cpu"]}
 
 
+# phase examples: the stress recipe cut to 1,244 utterances and a 20,000-
+# sentence LM, at the full 20,000-word lexicon
+EXAMPLES_STRESS_ARGS = ["--utts", "1200", "--cv", "32", "--eval", "12",
+                        "--lm-sents", "20000", "--epoch-repeat", "2"]
+EXAMPLE_KERNELS = ("lstm_fwd", "lstm_bwd", "ctc_alpha", "ctc_beta",
+                   "dedup_prune")
+STRESS_DECODES = ("sweep", "direct", "direct_best", "full_decode",
+                  "skip_decode", "lattices")
+
+
+def phase_examples(dev, state):
+    import shutil
+
+    work = os.path.join(ROOT, "tmp", "chip_smoke_examples")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        return _examples(work, state)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _examples(work, state):
+    """(i) examples/toy_recipe.main on the card (its default device):
+    kernels 1, 3, 6, 7 in training and 1, 2 in the decode launched, a
+    finite WER; (ii) examples/stress_recipe.main through
+    tools/stress_timing.run at EXAMPLES_STRESS_ARGS (the bench graph
+    cache under the work dir): its parity battery passes (the sweep at
+    the decode acwt equals the direct re-decode, the blank-skip guard ran
+    on its 6 utterances, const-arpa rescoring agrees with the G-fst
+    automaton on all 10 sampled lattices), training launches 8 lstm_fwd
+    per CTC launch and lstm_bwd in eights, each decode stage 8 lstm_fwd a
+    chunk and kernel 2 wherever a merge fits it; per stage the seconds
+    and launches."""
+    from eesen_tpu_torch.examples import stress_recipe, toy_recipe
+    from eesen_tpu_torch.tools import stress_timing
+
+    reset_counters()
+    t0 = time.perf_counter()
+    toy = toy_recipe.main([os.path.join(work, "toy")])
+    toy_s = time.perf_counter() - t0
+    toy_launches = counters()
+    missing = [k for k in EXAMPLE_KERNELS if not toy_launches[k]]
+    if missing or not np.isfinite(toy["stats"].wer):
+        raise AssertionError(f"toy recipe: launches {toy_launches}, "
+                             f"{toy['stats'].report()}")
+
+    cache = stress_recipe.BENCH_GRAPH_CACHE
+    stress_recipe.BENCH_GRAPH_CACHE = os.path.join(work, "bench",
+                                                   "tlg_stress.npz")
+    try:
+        reset_counters()
+        res = stress_timing.run([os.path.join(work, "stress"),
+                                 *EXAMPLES_STRESS_ARGS])
+        stress_launches = counters()
+    finally:
+        stress_recipe.BENCH_GRAPH_CACHE = cache
+    stages = res["stages"]
+    guard = res["blank_skip_guard"]
+    if not (res["sweep_equals_direct"] and guard["ok"] is not None
+            and guard["checked"] == 6
+            and res["const_arpa"]["rescore_parity"] == "10/10"):
+        raise AssertionError(
+            f"stress parity battery: sweep == direct "
+            f"{res['sweep_equals_direct']}, guard {guard}, const-arpa "
+            f"{res['const_arpa']['rescore_parity']}")
+    tr = stages["train"]["launches"]
+    if not (tr.get("ctc_alpha") and tr["ctc_alpha"] == tr.get("ctc_beta")
+            and tr.get("lstm_fwd") == 8 * tr["ctc_alpha"]
+            and tr.get("lstm_bwd", 0) % 8 == 0 and tr.get("lstm_bwd")):
+        raise AssertionError(f"stress train launches {tr}")
+    fits = all(m["kernel"] for m in res["graph"]["merges"].values())
+    for name in STRESS_DECODES:
+        n = stages[name]["launches"]
+        if not n.get("lstm_fwd") or n["lstm_fwd"] % 8 or (
+                fits and not n.get("dedup_prune")):
+            raise AssertionError(f"stress {name} launches {n}")
+    missing = [k for k in EXAMPLE_KERNELS if not stress_launches[k]]
+    if missing:
+        raise AssertionError(f"stress recipe launched none of {missing}")
+    state["examples_launches"] = {
+        k: {"toy": toy_launches[k], "stress": stress_launches[k]}
+        for k in toy_launches}
+    return {"toy": {"seconds": toy_s, "wer": toy["stats"].wer,
+                    "epochs": len(toy["history"]),
+                    "final_cv_acc": toy["history"][max(toy["history"])][
+                        "cv_acc"],
+                    "launches": toy_launches},
+            "stress": {"args": EXAMPLES_STRESS_ARGS,
+                       "stages": {k: {f: v[f] for f in (
+                           "seconds", "launches", "peak_gb", "ms_per_frame")
+                           if f in v} for k, v in stages.items()},
+                       "graph": res["graph"],
+                       "live_arcs_peak": res["live_arcs_peak"],
+                       "final_cv_acc": res["final_cv_acc"],
+                       "sweep": res["sweep"], "guard": guard,
+                       "direct_wer": res["direct_wer"],
+                       "full_wer": res["full_wer"],
+                       "blank_skip_wer": res["blank_skip_wer"],
+                       "blank_skip_diff_utts": res["blank_skip_diff_utts"],
+                       "const_arpa": res["const_arpa"],
+                       "launches": stress_launches}}
+
+
 def kernels_report(state, timing):
     def mesh_launches(name):
         """A kernel's launches on the mesh path (phase mesh): training in
@@ -4107,6 +4214,11 @@ def kernels_report(state, timing):
             label: n[name] for label, n in state["cli_launches"].items()
             if n.get(name)}}
 
+    def examples_launches(name):
+        """A kernel's launches in phase examples: the toy recipe, the
+        cut-scale stress recipe."""
+        return {"examples_launches": state["examples_launches"][name]}
+
     lt = timing["lstm_fwd"]["D640"]
     ltt = timing["lstm_fwd_train"]["D640"]
     dt = timing["dedup_prune"]["m14336"]
@@ -4128,6 +4240,7 @@ def kernels_report(state, timing):
          "launches": state["v1_launches"][f"lstm_scan_{k}"],
          "recipe_train_launches": rl["train"][f"lstm_scan_{k}"],
          **cli_launches(f"lstm_scan_{k}"),
+         **examples_launches(f"lstm_scan_{k}"),
          "path": v1_path, "max_abs_err": err[LIBRI_H][k],
          **{f: scan[k]["H640"][f]
             for f in ("ms", "us_per_step", "thread_per_unit_ms", "plain_ms",
@@ -4147,6 +4260,7 @@ def kernels_report(state, timing):
          "libri_train_launches": state["libri_train_launches"][f"ctc_{w}"],
          "recipe_train_launches": rl["train"][f"ctc_{w}"],
          **cli_launches(f"ctc_{w}"),
+         **examples_launches(f"ctc_{w}"),
          "max_abs_err": state["ctc"]["max_abs_err"][w],
          **{k: timing[f"ctc_{w}"]["S201"][k]
             for k in ("ms", "us_per_step", "ms_back_to_back", "plan",
@@ -4185,6 +4299,7 @@ def kernels_report(state, timing):
          "recipe_decode_launches": rl["decode"]["lstm_fwd"],
          "recipe_lattice_launches": rl["lattices"]["lstm_fwd"],
          **cli_launches("lstm_fwd"),
+         **examples_launches("lstm_fwd"),
          "h640": h640["lstm_fwd"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "eesen_tpu_torch/csrc/lstm_bwd.cu",
@@ -4202,6 +4317,7 @@ def kernels_report(state, timing):
          "libri_train_launches": state["libri_train_launches"]["lstm_bwd"],
          "recipe_train_launches": rl["train"]["lstm_bwd"],
          **cli_launches("lstm_bwd"),
+         **examples_launches("lstm_bwd"),
          "h640": h640["lstm_bwd"]},
         *scan_rows,
         *ctc,
@@ -4219,6 +4335,7 @@ def kernels_report(state, timing):
          "recipe_decode_launches": rl["decode"]["dedup_prune"],
          "recipe_lattice_launches": rl["lattices"]["dedup_prune"],
          **cli_launches("dedup_prune"),
+         **examples_launches("dedup_prune"),
          "options_launches": state["options_launches"],
          "max_abs_err": max(state["dedup"]["max_abs_err"].values()),
          "ms": dt["ms"], "device_ms": dt["device_ms"],
@@ -4280,6 +4397,7 @@ def run(dev) -> bool:
         phase("frontend", phase_frontend, dev, state)
         phase("recipe", phase_recipe, dev, state)
         phase("cli", phase_cli, dev, graphs, state)
+        phase("examples", phase_examples, dev, state)
         state["lstm_bwd"] = phase("lstm_bwd", phase_lstm_bwd, dev)
         state["ctc"] = phase("ctc", phase_ctc, dev)
         phase("train", phase_train, dev, state)

@@ -238,6 +238,12 @@ def generate_corpus(
     return waves, texts, utt2spk
 
 
+def speaker_seed(spk: str) -> int:
+    """The seed of a speaker's parameters: the JAX package's
+    abs(hash(spk)) % 2**32, salted per process like every str hash."""
+    return abs(hash(spk)) % (2**32)
+
+
 def generate_corpus_from_texts(
     cfg: SynthConfig,
     texts: Dict[str, List[str]],
@@ -246,12 +252,17 @@ def generate_corpus_from_texts(
     phones_tbl,
     snr_range: Tuple[float, float] | None = None,
     seed: int = 0,
+    speaker_seeds: Dict[str, int] | None = None,
 ):
     """Synthesize waves for GIVEN word sequences (the stress-corpus path:
     the caller controls text statistics — Markov LM text, OOV/homophone
     eval sets — while this function only renders audio).  Speakers are
-    derived deterministically from utt2spk values; per-utterance SNR is
-    drawn from snr_range when given (else cfg.snr_db)."""
+    derived from utt2spk values: each speaker's parameters are drawn from
+    speaker_seeds[spk] when given, else from speaker_seed(spk), which
+    hashes the name with Python's per-process string hash (so a fresh
+    interpreter gives other voices unless PYTHONHASHSEED is fixed);
+    per-utterance SNR is drawn from snr_range when given (else
+    cfg.snr_db)."""
     rng = np.random.default_rng(cfg.seed * 7919 + seed)
     units = [f"p{i:02d}" for i in range(cfg.num_phones)]
     unit_index = {u: i for i, u in enumerate(units)}
@@ -261,7 +272,9 @@ def generate_corpus_from_texts(
     for utt in sorted(texts):
         spk = utt2spk[utt]
         if spk not in spk_params:
-            srng = np.random.default_rng(abs(hash(spk)) % (2**32))
+            srng = np.random.default_rng(
+                speaker_seeds[spk] if speaker_seeds is not None
+                else speaker_seed(spk))
             spk_params[spk] = _speaker(srng, cfg)
         c = cfg
         if snr_range is not None:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from eesen_tpu_torch.decoder import beam as tbeam
+from eesen_tpu_torch.examples import stress_recipe, synth_recipe, toy_recipe
 from eesen_tpu_torch.decoder import graph_compile as t_gc
 from eesen_tpu_torch.frontend import features as tfeat
 from eesen_tpu_torch.frontend import pitch as tpitch
@@ -78,7 +79,7 @@ def tiny_graph():
     "decode", "create_train_state", "trainer", "opt_state_from_jax",
     "stream_state", "streaming_am", "streaming_decoder",
     "streaming_pipeline", "recipe_run", "fbank", "kaldi_pitch",
-    "read_eesen_nnet",
+    "read_eesen_nnet", "toy_recipe", "synth_recipe", "stress_recipe",
 ])
 def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
     cfg = tmodel.AcousticModelConfig(input_dim=4, cell_dim=4, num_layers=1,
@@ -114,6 +115,10 @@ def test_entry_points_default_to_cuda(no_cuda, entry, tmp_path):
         "kaldi_pitch": lambda: tpitch.kaldi_pitch(np.zeros(800, np.float32)),
         "read_eesen_nnet": lambda: tser.read_eesen_nnet((
             tser.write_eesen_nnet(nnet, params, cfg), nnet)[1]),
+        "toy_recipe": lambda: toy_recipe.main([str(tmp_path)]),
+        "synth_recipe": lambda: synth_recipe.main([str(tmp_path)]),
+        "stress_recipe": lambda: stress_recipe.main(
+            [str(tmp_path), "--stop-after", "synth"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
