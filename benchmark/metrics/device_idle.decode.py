@@ -1,0 +1,4 @@
+"""device_idle.decode: the share of the traced stretch in which no kernel or copy ran
+on the device, in %."""
+
+from benchmark.metrics.device_idle import read  # noqa: F401
