@@ -30,7 +30,9 @@ tid-1 acoustic column shift), with static shapes:
   parent slot plus up to `max_olabels` output labels per slot, and
   `traceback` walks them on the host.
 
-The frame loop is a Python loop of tensor operations.  The same frame
+The frame loop is a Python loop of tensor operations, timed by the
+spans `decode.*` of utils/profile.py (the search, each frame and its
+expansion, merge and closure, the traceback).  The same frame
 step serves the one-shot `make_beam_decoder` and, through
 `make_beam_decoder(..., _internals=True)`, the chunked entry of
 `StreamingBeamDecoder` and models/streaming.StreamingPipeline: the active
@@ -57,6 +59,7 @@ from eesen_tpu_torch.ops import beam_cuda
 from eesen_tpu_torch.parallel.distributed import all_gather
 from eesen_tpu_torch.parallel.mesh import Mesh
 from eesen_tpu_torch.parallel.sharding import local_rows
+from eesen_tpu_torch.utils.profile import profiler
 
 INF = float("inf")
 MAX_OLABELS_PER_FRAME = 2   # words emitted by one frame's arc+eps chain
@@ -473,6 +476,7 @@ def make_beam_decoder(
     m_x = 0 if dense or cfg.arc_budget_x <= 0 else max(cfg.arc_budget_x, k)
     L = max(cfg.max_olabels, 1)
     lat_beam = cfg.lattice_beam
+    span = profiler.track
 
     def _dedup(dst: torch.Tensor, score: torch.Tensor):
         """Recombine + prune: the CUDA kernel when the padded width fits
@@ -598,38 +602,39 @@ def make_beam_decoder(
     def frame(carry, ll_t, act, dg: DeviceGraph):
         states, scores, offs, overflow = carry
         b, v = ll_t.shape
-        parent_e = None
-        if dense:
-            dst, pscore, il, ol, d_offs = _expand_dense(
-                states, scores, dg.emit_rows
-            )
-        elif m_e > 0:
-            dst, pscore, il, ol, d_offs, parent_e, arc_of = _expand_compact(
-                offs, scores, dg.emit_packed, 0, m_e
-            )
-            overflow = overflow + arc_of
-        else:
-            dst, pscore, il, ol, d_offs = _expand(
-                offs, scores, dg.emit_packed, d_e, which=0
-            )
-        col = (il - 1).clamp(0, v - 1)                     # tid-1 shift
-        ac = _acoustic_lookup(ll_t, col, scale)
-        pscore = torch.where(
-            torch.isfinite(pscore), pscore + ac, torch.full_like(pscore, INF)
-        )
-        if parent_e is None:
-            parent_e = _slot_of_lane(b, pscore.shape[1], pscore.device)
-        if has_hubs:
-            # hub lanes after the gathered ones: lane order, and with it
-            # the merge's tie order, is the JAX package's
-            lanes = hub_lanes(states, scores, ll_t, dg)
-            dst, pscore, ol, parent_e, d_offs = (
-                torch.cat([a, h], dim=1) for a, h in zip(
-                    (dst, pscore, ol, parent_e, d_offs), lanes))
-        if cfg.light_emit_dedup:
-            e_states, e_scores, e_idx = _topk_prune(dst, pscore, k)
-        else:
-            e_states, e_scores, e_idx = _dedup(dst, pscore)
+        with span("decode.expand"):
+            parent_e = None
+            if dense:
+                dst, pscore, il, ol, d_offs = _expand_dense(
+                    states, scores, dg.emit_rows
+                )
+            elif m_e > 0:
+                (dst, pscore, il, ol, d_offs, parent_e,
+                 arc_of) = _expand_compact(offs, scores, dg.emit_packed, 0,
+                                           m_e)
+                overflow = overflow + arc_of
+            else:
+                dst, pscore, il, ol, d_offs = _expand(
+                    offs, scores, dg.emit_packed, d_e, which=0
+                )
+            col = (il - 1).clamp(0, v - 1)                     # tid-1 shift
+            ac = _acoustic_lookup(ll_t, col, scale)
+            pscore = torch.where(torch.isfinite(pscore), pscore + ac,
+                                 torch.full_like(pscore, INF))
+            if parent_e is None:
+                parent_e = _slot_of_lane(b, pscore.shape[1], pscore.device)
+            if has_hubs:
+                # hub lanes after the gathered ones: lane order, and with it
+                # the merge's tie order, is the JAX package's
+                lanes = hub_lanes(states, scores, ll_t, dg)
+                dst, pscore, ol, parent_e, d_offs = (
+                    torch.cat([a, h], dim=1) for a, h in zip(
+                        (dst, pscore, ol, parent_e, d_offs), lanes))
+        with span("decode.merge"):
+            if cfg.light_emit_dedup:
+                e_states, e_scores, e_idx = _topk_prune(dst, pscore, k)
+            else:
+                e_states, e_scores, e_idx = _dedup(dst, pscore)
         parent = parent_e.gather(1, e_idx).int()
         e_offs = _take_rows(d_offs, e_idx)
         emit_ol = torch.where(
@@ -640,9 +645,10 @@ def make_beam_decoder(
             torch.zeros((b, k, L), dtype=torch.int32, device=ll_t.device),
             emit_ol, overflow,
         )
-        n_states, n_scores, n_offs, parent, olab, overflow = eps_phase(
-            (e_states, e_scores, e_offs, parent, olab, overflow), dg
-        )
+        with span("decode.closure"):
+            n_states, n_scores, n_offs, parent, olab, overflow = eps_phase(
+                (e_states, e_scores, e_offs, parent, olab, overflow), dg
+            )
         active = act[:, None]
         ident = torch.arange(k, dtype=torch.int32, device=ll_t.device)
         out = (
@@ -678,8 +684,9 @@ def make_beam_decoder(
         parent = torch.empty((t_max, b, k), dtype=torch.int32, device=dev)
         olabels = torch.empty((t_max, b, k, L), dtype=torch.int32, device=dev)
         for t in range(t_max):
-            carry, out = frame(carry, ll_tm[t], act[t], dg)
-            states[t], scores[t], parent[t], olabels[t] = out
+            with span("decode.frame"):
+                carry, out = frame(carry, ll_tm[t], act[t], dg)
+                states[t], scores[t], parent[t], olabels[t] = out
         finite = torch.isfinite(scores)
         if lat_beam > 0.0:
             fbest = scores.min(dim=-1, keepdim=True).values
@@ -690,16 +697,17 @@ def make_beam_decoder(
 
     def decode(loglikes, lengths, dg: DeviceGraph) -> BeamOutputs:
         _check_layout(dg)
-        dev = dg.final_weight.device
-        loglikes = as_tensor(loglikes, torch.float32).to(dev)
-        lengths = as_tensor(lengths, torch.int64).to(dev)
-        b, t_max, _ = loglikes.shape
-        carry, init_olab = init_active_set(b, dg)
-        act = torch.arange(t_max, device=dev)[:, None] < lengths[None, :]
-        carry, (st, sc, par, ol, lm) = run_frames(
-            carry, loglikes.transpose(0, 1), act, dg
-        )
-        return BeamOutputs(st, sc, par, ol, init_olab, carry[3], lm)
+        with span("decode.search"):
+            dev = dg.final_weight.device
+            loglikes = as_tensor(loglikes, torch.float32).to(dev)
+            lengths = as_tensor(lengths, torch.int64).to(dev)
+            b, t_max, _ = loglikes.shape
+            carry, init_olab = init_active_set(b, dg)
+            act = torch.arange(t_max, device=dev)[:, None] < lengths[None, :]
+            carry, (st, sc, par, ol, lm) = run_frames(
+                carry, loglikes.transpose(0, 1), act, dg
+            )
+            return BeamOutputs(st, sc, par, ol, init_olab, carry[3], lm)
 
     def init_chunk(b: int, dg: DeviceGraph):
         _check_layout(dg)
@@ -707,12 +715,13 @@ def make_beam_decoder(
 
     def decode_chunk(carry, loglikes, active, dg: DeviceGraph):
         _check_layout(dg)
-        dev = dg.final_weight.device
-        loglikes = as_tensor(loglikes, torch.float32).to(dev)
-        active = as_tensor(active, torch.bool).to(dev)
-        return run_frames(
-            carry, loglikes.transpose(0, 1), active.transpose(0, 1), dg
-        )
+        with span("decode.search"):
+            dev = dg.final_weight.device
+            loglikes = as_tensor(loglikes, torch.float32).to(dev)
+            active = as_tensor(active, torch.bool).to(dev)
+            return run_frames(
+                carry, loglikes.transpose(0, 1), active.transpose(0, 1), dg
+            )
 
     if _internals:
         return init_chunk, decode_chunk
@@ -932,6 +941,11 @@ def traceback(
     total cost incl. final weight); falls back to the best non-final
     token when no final state survives (decoder-wrappers.cc 'partial
     traceback')."""
+    with profiler.track("decode.traceback"):
+        return _traceback(outputs, lengths, final_weight)
+
+
+def _traceback(outputs, lengths, final_weight):
     st = _np(outputs.states)
     sc = _np(outputs.scores)
     par = _np(outputs.parent)

@@ -38,6 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from eesen_tpu_torch.models.model import as_tensor
+from eesen_tpu_torch.utils.profile import profiler
 
 
 class CompactFrames(NamedTuple):
@@ -131,10 +132,12 @@ def compact_blank_frames(
     the full decode's (module docstring)."""
     if not (0.0 < threshold < 1.0):
         raise ValueError(f"threshold must be in (0, 1), got {threshold}")
-    ll = as_tensor(loglikes, torch.float32)
-    lens = as_tensor(lengths, torch.int64).to(ll.device)
-    t = ll.shape[1]
-    packed, count, order = _partition(ll, lens, math.log(threshold), min_run)
-    t_keep = int(count.max()) if count.shape[0] else 0   # one host read
-    t_new = min(max(bucket, -(-t_keep // bucket) * bucket), t)
-    return CompactFrames(packed[:, :t_new], count, order[:, :t_new])
+    with profiler.track("decode.compact"):
+        ll = as_tensor(loglikes, torch.float32)
+        lens = as_tensor(lengths, torch.int64).to(ll.device)
+        t = ll.shape[1]
+        packed, count, order = _partition(ll, lens, math.log(threshold),
+                                          min_run)
+        t_keep = int(count.max()) if count.shape[0] else 0  # one host read
+        t_new = min(max(bucket, -(-t_keep // bucket) * bucket), t)
+        return CompactFrames(packed[:, :t_new], count, order[:, :t_new])

@@ -26,7 +26,8 @@ Synthesis, the lexicon, the texts, the LM, G and the TLG are host numpy
 and C++ from numpy seeds (the JAX package's bytes); features, training
 and the search run on `--device` ("cuda" by default: fbank in torch ops,
 the LSTM, CTC and recombination kernels).  Each stage's wall seconds,
-kernel launches and peak device memory go to results.json ("stages").
+kernel launches, span seconds (utils/profile.SPANS) and peak device
+memory go to results.json ("stages").
 Reference pipeline shape: asr_egs/wsj/run_ctc_phn.sh:21-97.
 
 Usage: python -m eesen_tpu_torch.examples.stress_recipe [workdir]

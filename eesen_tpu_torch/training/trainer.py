@@ -19,6 +19,11 @@ schedule, early stop and resume (steps/train_ctc_parallel.sh:132-190):
   group, runs at full width (the JAX package leaves `model` to XLA, which
   gathers the weights around a pallas_call), and keeps its blocks of the
   update.
+- `run_epoch` and the steps mark their boundaries with the spans
+  `train.*` of utils/profile.py (the input copy, the step, the host's
+  wait for the step before, the token-error monitor; forward, loss,
+  backward and optimizer inside a step); the epoch log line gives the
+  input copy, metrics wait and monitor shares of the wall time.
 - `Trainer.fit` runs the newbob epoch loop, with checkpoints written by
   `torch.save` (the JAX package uses orbax) and the same `sched.json`;
   under a mesh only rank 0 writes them, always with the whole
@@ -33,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import inspect
 import os
+import time
 from typing import Any, Callable, Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
@@ -56,6 +62,7 @@ from eesen_tpu_torch.training.optim import (
 )
 from eesen_tpu_torch.training.schedule import NewbobConfig, NewbobScheduler
 from eesen_tpu_torch.utils.logging import get_logger
+from eesen_tpu_torch.utils.profile import profiler
 from eesen_tpu_torch.utils.timer import Timer
 
 log = get_logger("training.trainer")
@@ -85,24 +92,28 @@ def _obj_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
     loss="ctc": per-utterance CTC negative log-likelihood.  loss="ce":
     per-frame cross entropy against frame-aligned labels (labels [B, T],
     BatchConfig(frame_labels=True)); metrics gain a `correct` count."""
-    logits = apply_model(
-        params, batch["feats"], batch["feat_lengths"], model_cfg,
-        train=train, rng=rng,
-    )
+    with profiler.track("train.forward"):
+        logits = apply_model(
+            params, batch["feats"], batch["feat_lengths"], model_cfg,
+            train=train, rng=rng,
+        )
     metrics = {}
     if with_argmax:
         metrics["argmax"] = logits.detach().argmax(dim=-1).to(torch.int32)
     if loss == "ce":
         t = logits.shape[1]
-        _, m = ce_loss(logits, batch["feat_lengths"], batch["labels"][:, :t])
+        with profiler.track("train.loss"):
+            _, m = ce_loss(logits, batch["feat_lengths"],
+                           batch["labels"][:, :t])
         metrics.update(
             obj_sum=m["obj_sum"], frames=m["frames"], correct=m["correct"],
         )
         return m["obj_sum"], metrics
-    nll = ctc_loss(
-        logits, batch["feat_lengths"], batch["labels"],
-        batch["label_lengths"],
-    )
+    with profiler.track("train.loss"):
+        nll = ctc_loss(
+            logits, batch["feat_lengths"], batch["labels"],
+            batch["label_lengths"],
+        )
     metrics.update(obj_sum=nll.sum(), frames=batch["feat_lengths"].sum())
     return nll.sum(), metrics
 
@@ -142,11 +153,15 @@ def make_train_step(
         loss_val, metrics = _loss_and_metrics(
             params, batch, model_cfg, rng, True, loss_kind, with_argmax
         )
-        grads = torch.autograd.grad(loss_val, leaves)
+        with profiler.track("train.backward"):
+            grads = torch.autograd.grad(loss_val, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss_val.detach()
-        return _update(tx, state, tree_unflatten(state.params, list(grads)),
-                       learn_rate), metrics
+        with profiler.track("train.optimizer"):
+            new = _update(tx, state,
+                          tree_unflatten(state.params, list(grads)),
+                          learn_rate)
+        return new, metrics
 
     return train_step
 
@@ -218,7 +233,8 @@ def make_shard_map_train_step(
         _global_counts(metrics, mesh)
         frames = torch.clamp(metrics["frames"], min=1).to(obj.dtype)
         loss_val = obj / frames
-        grads = torch.autograd.grad(loss_val, leaves)
+        with profiler.track("train.backward"):
+            grads = torch.autograd.grad(loss_val, leaves)
         bucket = torch.cat([g.reshape(-1) for g in grads] + [
             loss_val.detach().reshape(1).to(grads[0].dtype),
             obj.detach().reshape(1).to(grads[0].dtype)])
@@ -227,8 +243,9 @@ def make_shard_map_train_step(
         metrics.update(loss=bucket[-2], obj_sum=bucket[-1])
         if "argmax" in metrics:
             metrics["argmax"] = all_gather(metrics["argmax"], mesh)
-        new = _update(tx, state, unravel(state.params, bucket[:-2]),
-                      learn_rate)
+        with profiler.track("train.optimizer"):
+            new = _update(tx, state, unravel(state.params, bucket[:-2]),
+                          learn_rate)
         return new._replace(params=local_shards(new.params, mesh)), metrics
 
     return train_step
@@ -334,6 +351,7 @@ class Trainer:
     ) -> EpochReport:
         report = EpochReport()
         timer = Timer()
+        span = profiler.track
         n = 0
         ter_step = max(self.cfg.ter_step, 1) if train else 1
         # metrics are processed ONE STEP LATE: the host fetch + edit
@@ -343,36 +361,45 @@ class Trainer:
         def process(entry):
             metrics, meta, want_ter = entry
             feat_lengths, labels, label_lengths = meta
+            with span("train.metrics_wait"):
+                obj_sum = float(metrics["obj_sum"])
+                frames = int(metrics["frames"])
             if want_ter and "correct" in metrics:
                 # CE: frame accuracy (src/net/ce-loss.cc monitor)
-                refs = int(metrics["frames"])
+                refs = frames
                 errs = refs - int(metrics["correct"])
             elif want_ter:
-                errs, refs = token_error_counts(
-                    metrics["argmax"].cpu().numpy(),
-                    feat_lengths, labels, label_lengths,
-                )
+                with span("train.monitor"):
+                    errs, refs = token_error_counts(
+                        metrics["argmax"].cpu().numpy(),
+                        feat_lengths, labels, label_lengths,
+                    )
             else:
                 errs = refs = 0
-            report.update(
-                float(metrics["obj_sum"]), int(metrics["frames"]),
-                errs, refs, int(np.sum(feat_lengths > 0)),
-            )
+            report.update(obj_sum, frames, errs, refs,
+                          int(np.sum(feat_lengths > 0)))
+
+        # the epoch log's shares of the wall time since its last line
+        logged = ("train.input_copy", "train.metrics_wait", "train.monitor")
+        since = (time.perf_counter_ns(), [profiler.ns[k] for k in logged])
 
         for batch in batches:
             batch.pop("keys", None)
-            dev_batch = self._to_device(
-                batch if self.mesh is None else shard_batch(batch, self.mesh))
-            if train:
-                # the argmax only on TER batches; CE needs none at all
-                want_ter_now = (n + 1) % ter_step == 0
-                self.state, metrics = self.train_step(
-                    self.state, dev_batch, split_generator(self.rng),
-                    learn_rate,
-                    with_argmax=want_ter_now and self.cfg.loss != "ce",
-                )
-            else:
-                metrics = self.eval_step(self.state.params, dev_batch)
+            with span("train.input_copy"):
+                dev_batch = self._to_device(
+                    batch if self.mesh is None
+                    else shard_batch(batch, self.mesh))
+            with span("train.step"):
+                if train:
+                    # the argmax only on TER batches; CE needs none at all
+                    want_ter_now = (n + 1) % ter_step == 0
+                    self.state, metrics = self.train_step(
+                        self.state, dev_batch, split_generator(self.rng),
+                        learn_rate,
+                        with_argmax=want_ter_now and self.cfg.loss != "ce",
+                    )
+                else:
+                    metrics = self.eval_step(self.state.params, dev_batch)
             n += 1
             if pending is not None:
                 process(pending)
@@ -385,9 +412,16 @@ class Trainer:
             )
             if n % self.cfg.report_step == 0:
                 fps = report.total_frames / max(timer.elapsed(), 1e-9)
+                now = time.perf_counter_ns()
+                wall = max(now - since[0], 1)
+                shares = [100.0 * (profiler.ns[k] - ns) / wall
+                          for k, ns in zip(logged, since[1])]
+                since = (now, [profiler.ns[k] for k in logged])
                 log.info(
-                    "%s batch %d: %s (%.0f frames/sec)",
+                    "%s batch %d: %s (%.0f frames/sec; input copy %.1f%%, "
+                    "metrics wait %.1f%%, monitor %.1f%% of the wall time)",
                     "TRAIN" if train else "CV", n, report.report(), fps,
+                    *shares,
                 )
         if pending is not None:
             process(pending)

@@ -1,11 +1,12 @@
-"""Per-stage records of a run: wall seconds, kernel launches and peak
-device memory of each stage (the end-to-end examples' results.json).
+"""The program's counters, and per-stage records of a run: wall seconds,
+kernel launches, span seconds and peak device memory of each stage (the
+end-to-end examples' results.json).
 
     stages = Stages()
     with stages("train") as rec:
         run.train(...)
         rec["epochs"] = ...            # anything else the stage records
-    stages.rec["train"]                # {"seconds", "launches", "peak_gb", ...}
+    stages.rec["train"]    # {"seconds", "launches", "spans", "peak_gb", ...}
 """
 
 from __future__ import annotations
@@ -17,9 +18,23 @@ import time
 import torch
 
 from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
+from eesen_tpu_torch.utils.profile import SPANS, profiler
 
 
 def launch_counts():
+    """Every counter of the program, as integers, each key in every
+    snapshot: the kernel wrappers' launch counters (`kernel_launches`)
+    and, for each span of `utils.profile.SPANS`, its total wall
+    nanoseconds under "span_ns:<name>" and its count under
+    "span_n:<name>"."""
+    out = kernel_launches()
+    for name in SPANS:
+        out[f"span_ns:{name}"] = profiler.ns[name]
+        out[f"span_n:{name}"] = profiler.counts[name]
+    return out
+
+
+def kernel_launches():
     """The kernel wrappers' launch counters (ops/*_cuda.py)."""
     return {"lstm_fwd": lstm_cuda.launches,
             "lstm_bwd": lstm_cuda.bwd_launches,
@@ -31,8 +46,9 @@ def launch_counts():
 
 
 class Stages:
-    """Wall seconds, kernel launches (those that moved) and peak device
-    memory of each stage, kept in `rec` and printed as the stage ends.
+    """Wall seconds, kernel launches and span seconds (those that moved)
+    and peak device memory of each stage, kept in `rec` and printed as
+    the stage ends.
     CUDA is synchronized and its peak read only once the process has
     initialised it, so a run that stops before any device work never
     initialises it."""
@@ -45,16 +61,18 @@ class Stages:
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        before = launch_counts()
+        before, ns0 = kernel_launches(), dict(profiler.ns)
         t0 = time.perf_counter()
         rec = self.rec[name] = {}
         yield rec
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
-        after = launch_counts()
+        after = kernel_launches()
         rec["seconds"] = time.perf_counter() - t0
         rec["launches"] = {k: after[k] - before[k] for k in after
                            if after[k] != before[k]}
+        rec["spans"] = {k: (profiler.ns[k] - ns0[k]) * 1e-9
+                        for k in SPANS if profiler.ns[k] != ns0[k]}
         if torch.cuda.is_initialized():
             rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"stage {name}: {json.dumps(rec)}", flush=True)

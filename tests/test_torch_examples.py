@@ -287,8 +287,24 @@ def test_reduced_stress_parity_battery(reduced_run):
                  "rescore"):
         assert res["stages"][name]["seconds"] >= 0.0, name
         assert res["stages"][name]["launches"] == {}, name   # CPU
-    assert json.loads((work / "results.json").read_text())["wer"] == \
-        res["wer"]
+    # span seconds beside the launches: the training loop's and the
+    # search's own spans, within the stage's wall time
+    spans = {name: rec["spans"] for name, rec in res["stages"].items()}
+    assert {"train.input_copy", "train.step",
+            "train.metrics_wait"} <= set(spans["train"])
+    for name in ("full_decode", "skip_decode"):
+        assert {"decode.search", "decode.frame",
+                "decode.traceback"} <= set(spans[name]), name
+        assert not any(k.startswith("train.") for k in spans[name]), name
+    outer = ("train.input_copy", "train.step", "train.metrics_wait",
+             "train.monitor", "decode.compact", "decode.search",
+             "decode.traceback")                 # no one inside another
+    for name, rec in res["stages"].items():
+        assert sum(spans[name].get(k, 0.0) for k in outer) <= \
+            rec["seconds"], name
+    saved = json.loads((work / "results.json").read_text())
+    assert saved["wer"] == res["wer"]
+    assert saved["stages"]["train"]["spans"] == spans["train"]
     md = (work / "results.md").read_text()
     assert "## Stress corpus" in md and "EXACT" in md
 
