@@ -361,23 +361,28 @@ __global__ void __launch_bounds__(THREADS)
 // by ops/beam_cuda.py smem_bytes).
 extern "C" long long dedup_prune_smem_bytes(int Mp, int K) { return region_bytes(Mp, K); }
 
-// Launches the recombination of B rows of M proposals on `stream`, one
-// cluster of 8 CTAs a row; returns the first CUDA error
-// (cudaErrorInvalidConfiguration when a cluster cannot be resident).  Mp is
-// the padded power-of-two width (128 <= Mp <= 16384, Mp >= M), 1 <= K <= Mp.
-extern "C" int dedup_prune(const void* dst, const void* score, void* states, void* scores,
-                           void* kept, int B, int M, int Mp, int K, float beam, void* stream) {
-  if (Mp < 128 || Mp > MAX_LANES || (Mp & (Mp - 1)) != 0 || M > Mp || K < 1 || K > Mp)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)region_bytes(Mp, K);
-  cudaError_t err = cudaFuncSetAttribute(dedup_prune_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+// Readies the kernel on the current device for rows padded to Mp lanes and K
+// survivors: raises its dynamic shared-memory allowance to this shape's
+// size where it was lower (so that every shape readied before still fits)
+// and returns how many of its clusters can be resident, or minus the first
+// CUDA error (-cudaErrorInvalidConfiguration when none can).  Called once
+// per device and shape before dedup_prune, and outside any stream capture.
+extern "C" int dedup_prune_ready(int Mp, int K) {
+  if (Mp < 128 || Mp > MAX_LANES || (Mp & (Mp - 1)) != 0 || K < 1 || K > Mp)
+    return -(int)cudaErrorInvalidValue;
+  const int smem = (int)region_bytes(Mp, K);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, dedup_prune_kernel);
+  if (err != cudaSuccess) return -(int)err;
+  if (fa.maxDynamicSharedSizeBytes < smem) {
+    err = cudaFuncSetAttribute(dedup_prune_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return -(int)err;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * CLUSTER);
+  cfg.gridDim = dim3(CLUSTER);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.dynamicSmemBytes = (size_t)smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = CLUSTER;
@@ -387,11 +392,36 @@ extern "C" int dedup_prune(const void* dst, const void* score, void* states, voi
   cfg.numAttrs = 1;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, dedup_prune_kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (active < 1) return (int)cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, dedup_prune_kernel, static_cast<const int*>(dst),
-                           static_cast<const float*>(score), static_cast<int*>(states),
-                           static_cast<float*>(scores), static_cast<int*>(kept), M, Mp, K, beam);
+  if (err != cudaSuccess) return -(int)err;
+  if (active < 1) return -(int)cudaErrorInvalidConfiguration;
+  return active;
+}
+
+// Launches the recombination of B rows of M proposals on `stream`, one
+// cluster of 8 CTAs a row, with the kernel readied for (Mp, K) by
+// dedup_prune_ready; returns the first CUDA error.  Mp is the padded
+// power-of-two width (128 <= Mp <= 16384, Mp >= M), 1 <= K <= Mp.  It makes
+// no query of the device, so a stream capture takes it.
+extern "C" int dedup_prune(const void* dst, const void* score, void* states, void* scores,
+                           void* kept, int B, int M, int Mp, int K, float beam, void* stream) {
+  if (Mp < 128 || Mp > MAX_LANES || (Mp & (Mp - 1)) != 0 || M > Mp || K < 1 || K > Mp)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = (size_t)region_bytes(Mp, K);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, dedup_prune_kernel, static_cast<const int*>(dst),
+                                       static_cast<const float*>(score), static_cast<int*>(states),
+                                       static_cast<float*>(scores), static_cast<int*>(kept), M,
+                                       Mp, K, beam);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -30,10 +30,18 @@ tid-1 acoustic column shift), with static shapes:
   parent slot plus up to `max_olabels` output labels per slot, and
   `traceback` walks them on the host.
 
-The frame loop is a Python loop of tensor operations, timed by the
-spans `decode.*` of utils/profile.py (the search, each frame and its
-expansion, merge and closure, the traceback).  The same frame
-step serves the one-shot `make_beam_decoder` and, through
+The frame step is a chain of tensor operations.  On the CPU the frame
+loop is a Python loop over it.  On a CUDA device the loop runs in blocks
+of F frames (`graph_block`): a block is one replay of a CUDA graph that
+holds the F frames' whole chain, captured once per shape (`_FrameGraph`)
+and kept by the decoder; the carry stays in the graph's buffers from
+block to block.  A shape's first block runs eagerly (it warms the
+allocator and readies kernel 2), and the last T' mod F frames, which no
+block covers, run eagerly too; eager and replayed frames give the same
+bits.  The spans `decode.*` of utils/profile.py time the search, each
+frame (a replayed block: its time once, its frames as its count), the
+eager frames' expansion, merge and closure, and the traceback.  The
+same frame step serves the one-shot `make_beam_decoder` and, through
 `make_beam_decoder(..., _internals=True)`, the chunked entry of
 `StreamingBeamDecoder` and models/streaming.StreamingPipeline: the active
 set is the carry between chunks, and `compose_chunk_paths` folds a
@@ -46,7 +54,10 @@ recombination by a plain top-K (`_topk_prune`, torch ops, no kernel).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+from collections import OrderedDict
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -59,10 +70,16 @@ from eesen_tpu_torch.ops import beam_cuda
 from eesen_tpu_torch.parallel.distributed import all_gather
 from eesen_tpu_torch.parallel.mesh import Mesh
 from eesen_tpu_torch.parallel.sharding import local_rows
-from eesen_tpu_torch.utils.profile import profiler
+from eesen_tpu_torch.utils.profile import graph_counts, profiler
 
 INF = float("inf")
 MAX_OLABELS_PER_FRAME = 2   # words emitted by one frame's arc+eps chain
+
+# The longest block of frames one CUDA graph replays, and the graphs one
+# decoder keeps (each with its own memory pool; the least recently used
+# is dropped first).
+MAX_GRAPH_BLOCK = 64
+MAX_GRAPHS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,8 +267,7 @@ def _expand(
     ol = torch.where(valid, rows[..., 1], zero)
     dst = torch.where(valid, rows[..., 3], zero)
     score = torch.where(
-        valid, scores[..., None] + _bits_to_f32(rows[..., 2]),
-        torch.tensor(INF, device=dev),
+        valid, scores[..., None] + _bits_to_f32(rows[..., 2]), INF,
     )
     d_offs = torch.where(valid[..., None], rows[..., 4:8], zero)
     return (
@@ -295,8 +311,7 @@ def _expand_compact(
     ol = torch.where(valid, rows[..., 1], zero)
     dst = torch.where(valid, rows[..., 3], zero)
     score = torch.where(
-        valid, scores.gather(1, src) + _bits_to_f32(rows[..., 2]),
-        torch.tensor(INF, device=dev),
+        valid, scores.gather(1, src) + _bits_to_f32(rows[..., 2]), INF,
     )
     d_offs = torch.where(valid[..., None], rows[..., 4:8], zero)
     arc_overflow = (total - m_budget).clamp(min=0).int()
@@ -331,9 +346,8 @@ def _dedup_and_prune(
     whenever the survivors cover >= k distinct destinations."""
     b, m = dst.shape
     dev = dst.device
-    inf = torch.tensor(INF, device=dev)
     best = score.min(dim=1, keepdim=True).values
-    score = torch.where(score <= best + beam, score, inf)
+    score = torch.where(score <= best + beam, score, INF)
     idx0 = torch.arange(m, device=dev).expand(b, m)
     if 0 < funnel < m:
         fidx = _smallest_k(score, max(funnel, k))
@@ -346,7 +360,7 @@ def _dedup_and_prune(
     orig_idx = idx0.gather(1, order)
     first = torch.ones_like(dst2, dtype=torch.bool)
     first[:, 1:] = dst2[:, 1:] != dst2[:, :-1]
-    score2 = torch.where(first, score2, inf)
+    score2 = torch.where(first, score2, INF)
     top_idx = _smallest_k(score2, k)
     new_scores = score2.gather(1, top_idx)
     new_states = torch.where(
@@ -437,6 +451,94 @@ def compose_chunk_paths(
     return entry, words, cnt, ovf
 
 
+def graph_block(t: int) -> int:
+    """Frames one CUDA graph replay searches in a search of t frames: the
+    largest power of two from 2 to MAX_GRAPH_BLOCK that is at most t, or
+    0 where none is (every frame then runs eagerly).  Blocks cover the
+    first t - t % F frames; the rest run eagerly."""
+    n = min(t, MAX_GRAPH_BLOCK)
+    return 1 << (n.bit_length() - 1) if n >= 2 else 0
+
+
+def _graphs_on(dev: torch.device) -> bool:
+    """Whether the search on `dev` runs its frames in captured blocks."""
+    return dev.type == "cuda"
+
+
+def _on(dev: torch.device):
+    """Make `dev` the current CUDA device inside the block (no-op off
+    CUDA): a capture and a replay run on the current device's streams."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _capture(fn, dev: torch.device):
+    """The CUDA work of fn() on `dev` as a graph (replay(), reset()); fn
+    runs once, under capture, on a side stream of `dev`, with its memory
+    in the graph's own pool."""
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(dev)
+    assert stream.device == dev, (stream.device, dev)
+    with torch.cuda.graph(g, stream=stream):
+        fn()
+    return g
+
+
+def _no_span(name: str):
+    return contextlib.nullcontext()
+
+
+class _FrameGraph:
+    """F frames of a decoder's search as one captured CUDA graph.
+
+    Static buffers: the block's log-likelihoods [F, B, V] and `act` rows
+    [F, B], the carry (read by the first frame, written by the last) and
+    the F frames' stacked outputs [F, B, K(, L)].  Kernel 2's wrapper
+    counts the launches a capture records under `beam_cuda.captured`;
+    each replay adds them to `beam_cuda.launches`."""
+
+    def __init__(self, frame, carry, ll: torch.Tensor, act: torch.Tensor,
+                 dg: DeviceGraph):
+        self.dev = ll.device
+        self.ll = torch.zeros(ll.shape, dtype=ll.dtype, device=ll.device)
+        self.act = torch.zeros(act.shape, dtype=act.dtype, device=act.device)
+        self.carry = tuple(torch.zeros_like(x) for x in carry)
+        captured = beam_cuda.captured
+
+        def block():
+            c, outs = self.carry, []
+            for i in range(self.ll.shape[0]):
+                c, out = frame(c, self.ll[i], self.act[i], dg, _no_span)
+                outs.append(out)
+            self.out = tuple(torch.stack(x) for x in zip(*outs))
+            for dst, x in zip(self.carry, c):
+                dst.copy_(x)
+
+        with _on(self.dev):
+            self.graph = _capture(block, self.dev)
+        self.kernels = beam_cuda.captured - captured
+
+    def run(self, carry, ll: torch.Tensor, act: torch.Tensor):
+        """One replay over the block ll [F, B, V], act [F, B] from
+        `carry` -> (the carry buffers, the stacked outputs)."""
+        with _on(self.dev):
+            if carry is not self.carry:
+                for dst, x in zip(self.carry, carry):
+                    dst.copy_(x)
+            self.ll.copy_(ll)
+            self.act.copy_(act)
+            self.graph.replay()
+        beam_cuda.launches += self.kernels
+        return self.carry, self.out
+
+    def release(self) -> None:
+        """Free the graph and, with the last reference, its pool."""
+        with _on(self.dev):
+            self.graph.reset()
+        self.out = None
+
+
 def make_beam_decoder(
     graph: CompiledGraph, cfg: BeamSearchConfig = BeamSearchConfig(),
     _internals: bool = False,
@@ -499,8 +601,8 @@ def make_beam_decoder(
     def _slot_of_lane(b: int, width: int, dev) -> torch.Tensor:
         """The source slot of each lane of a rectangular expansion of
         `width` lanes (width / K lanes a slot) -> [B, width] int64."""
-        return torch.arange(k, device=dev).repeat_interleave(
-            width // k).expand(b, width)
+        return (torch.arange(width, device=dev) // (width // k)).expand(
+            b, width)
 
     def _x_step(carry, dg: DeviceGraph, full_dedup: bool):
         """One eps/closure expansion merged with the carried set;
@@ -584,8 +686,7 @@ def make_beam_decoder(
         b, v = ll_t.shape
         eq = states[:, :, None] == dg.hub_src[None, None, :]
         msk = torch.where(
-            eq & torch.isfinite(scores)[:, :, None], scores[:, :, None],
-            torch.tensor(INF, device=eq.device),
+            eq & torch.isfinite(scores)[:, :, None], scores[:, :, None], INF,
         )                                                  # [B, K, H]
         hub_score = msk.amin(dim=1)                        # [B, H]
         hub_parent = msk.argmin(dim=1)                     # first minimum
@@ -599,10 +700,10 @@ def make_beam_decoder(
                 hp[None, :, 1].expand(b, eh), hub_parent[:, arc_hub],
                 hp[None, :, 4:4 + n_off].expand(b, eh, n_off))
 
-    def frame(carry, ll_t, act, dg: DeviceGraph):
+    def frame(carry, ll_t, act, dg: DeviceGraph, track=span):
         states, scores, offs, overflow = carry
         b, v = ll_t.shape
-        with span("decode.expand"):
+        with track("decode.expand"):
             parent_e = None
             if dense:
                 dst, pscore, il, ol, d_offs = _expand_dense(
@@ -630,7 +731,7 @@ def make_beam_decoder(
                 dst, pscore, ol, parent_e, d_offs = (
                     torch.cat([a, h], dim=1) for a, h in zip(
                         (dst, pscore, ol, parent_e, d_offs), lanes))
-        with span("decode.merge"):
+        with track("decode.merge"):
             if cfg.light_emit_dedup:
                 e_states, e_scores, e_idx = _topk_prune(dst, pscore, k)
             else:
@@ -645,7 +746,7 @@ def make_beam_decoder(
             torch.zeros((b, k, L), dtype=torch.int32, device=ll_t.device),
             emit_ol, overflow,
         )
-        with span("decode.closure"):
+        with track("decode.closure"):
             n_states, n_scores, n_offs, parent, olab, overflow = eps_phase(
                 (e_states, e_scores, e_offs, parent, olab, overflow), dg
             )
@@ -672,21 +773,73 @@ def make_beam_decoder(
                 f"dense={dense})"
             )
 
+    # this decoder's captured blocks, least recently used first, and the
+    # call in which each other block shape first ran eagerly
+    graphs: "OrderedDict[tuple, _FrameGraph]" = OrderedDict()
+    first_seen = {}
+    calls = itertools.count()
+
+    def block_graph(key, call: int, last: bool, carry, ll, act, dg):
+        """The captured block for `key`, captured now where the shape has
+        run eagerly before and the graph will be replayed again (in a
+        later call, or by a later block of this one); else None (run the
+        block eagerly)."""
+        fg = graphs.get(key)
+        if fg is not None:
+            graphs.move_to_end(key)
+            return fg
+        seen = first_seen.get(key)
+        if seen is None or (seen == call and last):
+            first_seen.setdefault(key, call)
+            return None
+        if len(graphs) >= MAX_GRAPHS:
+            graphs.popitem(last=False)[1].release()
+        fg = graphs[key] = _FrameGraph(frame, carry, ll, act, dg)
+        graph_counts["search_graph_captures"] += 1
+        return fg
+
     def run_frames(carry, ll_tm: torch.Tensor, act: torch.Tensor,
                    dg: DeviceGraph):
         """The frame step over ll_tm [T, B, V] and act [T, B] bool ->
         (carry, (states, scores, parent, olabels, lat_mask)), stacked
         [T, B, K(, L)]."""
-        t_max, b, _ = ll_tm.shape
+        t_max, b, v = ll_tm.shape
         dev = ll_tm.device
         states = torch.empty((t_max, b, k), dtype=torch.int32, device=dev)
         scores = torch.empty((t_max, b, k), dtype=torch.float32, device=dev)
         parent = torch.empty((t_max, b, k), dtype=torch.int32, device=dev)
         olabels = torch.empty((t_max, b, k, L), dtype=torch.int32, device=dev)
-        for t in range(t_max):
-            with span("decode.frame"):
-                carry, out = frame(carry, ll_tm[t], act[t], dg)
-                states[t], scores[t], parent[t], olabels[t] = out
+        outs = (states, scores, parent, olabels)
+
+        def eager(carry, t0, t1):
+            for t in range(t0, t1):
+                with span("decode.frame"):
+                    carry, out = frame(carry, ll_tm[t], act[t], dg)
+                    states[t], scores[t], parent[t], olabels[t] = out
+            return carry
+
+        f = graph_block(t_max) if _graphs_on(dev) else 0
+        n = t_max // f if f else 0
+        key = (str(dev), b, f, v, tuple(
+            (x.data_ptr(), tuple(x.shape)) for x in dg)) if f else None
+        call = next(calls)
+        fg = None
+        for i in range(n):
+            t0, t1 = i * f, (i + 1) * f
+            fg = block_graph(key, call, i == n - 1, carry, ll_tm[t0:t1],
+                             act[t0:t1], dg)
+            if fg is None:
+                carry = eager(carry, t0, t1)
+                continue
+            with span("decode.frame", f):
+                carry, out = fg.run(carry, ll_tm[t0:t1], act[t0:t1])
+                for dst, x in zip(outs, out):
+                    dst[t0:t1].copy_(x)
+            graph_counts["search_graph_frames"] += f
+        carry = eager(carry, n * f, t_max)
+        if fg is not None and carry is fg.carry:
+            # hand back a carry of its own: the next replay rewrites these
+            carry = tuple(x.clone() for x in carry)
         finite = torch.isfinite(scores)
         if lat_beam > 0.0:
             fbest = scores.min(dim=-1, keepdim=True).values

@@ -25,6 +25,14 @@ from eesen_tpu_torch.ops import build
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
+# launches recorded into a CUDA graph under stream capture: they run at
+# each replay, which adds them to `launches` (decoder/beam._FrameGraph)
+captured = 0
+
+# (device index, Mp, K) readied by the library's dedup_prune_ready: once
+# per device and shape, so a launch queries nothing and a CUDA graph
+# capture takes it
+_ready = set()
 
 PAD_DST = 0x3FFFFFFF
 MIN_LANES = 128
@@ -120,7 +128,7 @@ def dedup_prune(
     [B, K] int32 indices into the proposal axis).  CUDA tensors launch
     the kernel (padded width up to MAX_LANES); CPU tensors run
     `dedup_prune_ref`."""
-    global launches
+    global launches, captured
     if dst.device.type == "cpu":
         return dedup_prune_ref(dst, score, k, beam)
     if dst.device.type != "cuda":
@@ -144,11 +152,29 @@ def dedup_prune(
     scores = torch.empty((b, k), dtype=torch.float32, device=dst.device)
     kept = torch.empty((b, k), dtype=torch.int32, device=dst.device)
     if b > 0 and k > 0:
-        err = build.load().dedup_prune(
-            dst.data_ptr(), score.data_ptr(), states.data_ptr(),
-            scores.data_ptr(), kept.data_ptr(), b, m, mp, k, float(beam),
-            torch.cuda.current_stream(dst.device).cuda_stream,
-        )
+        _ready_for(dst.device, mp, k)
+        with torch.cuda.device(dst.device):
+            err = build.load().dedup_prune(
+                dst.data_ptr(), score.data_ptr(), states.data_ptr(),
+                scores.data_ptr(), kept.data_ptr(), b, m, mp, k, float(beam),
+                torch.cuda.current_stream().cuda_stream,
+            )
+            capturing = torch.cuda.is_current_stream_capturing()
         build.check(err, "dedup_prune")
-        launches += 1
+        if capturing:
+            captured += 1
+        else:
+            launches += 1
     return states, scores, kept
+
+
+def _ready_for(device: torch.device, mp: int, k: int) -> None:
+    """Ready the kernel for (mp, k) on `device` once: its shared-memory
+    allowance; raises where no cluster can be resident."""
+    key = (device.index, mp, k)
+    if key not in _ready:
+        with torch.cuda.device(device):
+            active = build.load().dedup_prune_ready(mp, k)
+        if active < 0:
+            build.check(-active, "dedup_prune")
+        _ready.add(key)

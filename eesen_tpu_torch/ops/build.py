@@ -168,6 +168,8 @@ def load() -> ctypes.CDLL:
         lib.ctc_smem_bytes.restype = ctypes.c_longlong
         lib.dedup_prune.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
         lib.dedup_prune.restype = _I
+        lib.dedup_prune_ready.argtypes = [_I] * 2
+        lib.dedup_prune_ready.restype = _I
         lib.dedup_prune_smem_bytes.argtypes = [_I] * 2
         lib.dedup_prune_smem_bytes.restype = ctypes.c_longlong
         lib.cuda_error_string.argtypes = [_I]

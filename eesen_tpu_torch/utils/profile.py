@@ -11,7 +11,8 @@ that Perfetto or TensorBoard opens.
 
 `profiler.track(name)` is also the port's span: the training loop and the
 search mark their layer boundaries with it (the names in `SPANS`).  A
-span adds its wall nanoseconds and a count under its name; inside
+span adds its wall nanoseconds and a count under its name (`track(name,
+n)` adds n: one replay of a captured block of n search frames); inside
 `trace()` it is also a `record_function` range of the same name, so that
 it lands in the Chrome trace beside the kernels it launched.  Under any
 other torch.profiler session (a benchmark's own) it opens no range: four
@@ -47,27 +48,35 @@ SPANS = (
     "train.monitor",         # run_epoch: the token-error counts
     "decode.compact",        # compact_blank_frames
     "decode.search",         # make_beam_decoder's decode / decode_chunk
-    "decode.frame",          # one frame of the frame loop
+    "decode.frame",          # one frame of the frame loop (a replayed
+    #                          block of n frames: its time once, count n)
     "decode.expand",         # a frame's arc expansion + acoustic lookup
     "decode.merge",          # a frame's emit merge (_dedup / _topk_prune)
-    "decode.closure",        # a frame's epsilon phase
+    "decode.closure",        # a frame's epsilon phase (these three on
+    #                          the eager frames only)
     "decode.traceback",      # traceback: copies to the host + the walk
 )
+
+# The search's CUDA graph counters (decoder/beam.py), beside the spans in
+# utils/stages.launch_counts(): the frames run by replaying a captured
+# block of frames, and the blocks captured.
+graph_counts = {"search_graph_frames": 0, "search_graph_captures": 0}
 
 _now = time.perf_counter_ns
 _ranges = 0     # open trace() blocks: spans open record_function ranges
 
 
 class _Span:
-    """One `Profiler.track` call: wall nanoseconds and a count under
-    `key`, and a `record_function` range inside `trace()` (its cost inside
-    the span's time)."""
+    """One `Profiler.track` call: wall nanoseconds and a count of `n`
+    under `key`, and a `record_function` range inside `trace()` (its cost
+    inside the span's time)."""
 
-    __slots__ = ("prof", "key", "t0", "rf")
+    __slots__ = ("prof", "key", "n", "t0", "rf")
 
-    def __init__(self, prof: "Profiler", key: str) -> None:
+    def __init__(self, prof: "Profiler", key: str, n: int) -> None:
         self.prof = prof
         self.key = key
+        self.n = n
         self.rf = None
 
     def __enter__(self) -> None:
@@ -79,7 +88,7 @@ class _Span:
     def __exit__(self, *exc) -> None:
         if self.rf is not None:
             self.rf.__exit__(*exc)
-        self.prof.add_ns(self.key, _now() - self.t0)
+        self.prof.add_ns(self.key, _now() - self.t0, self.n)
 
 
 class Profiler:
@@ -98,13 +107,14 @@ class Profiler:
         """Each key's total in seconds."""
         return {k: v / 1e9 for k, v in self.ns.items()}
 
-    def track(self, key: str) -> _Span:
-        """Time the `with` block under `key` (a span)."""
-        return _Span(self, key)
+    def track(self, key: str, n: int = 1) -> _Span:
+        """Time the `with` block under `key` (a span) and count it n
+        times."""
+        return _Span(self, key, n)
 
-    def add_ns(self, key: str, ns: int) -> None:
+    def add_ns(self, key: str, ns: int, n: int = 1) -> None:
         self.ns[key] = self.ns.get(key, 0) + ns
-        self.counts[key] = self.counts.get(key, 0) + 1
+        self.counts[key] = self.counts.get(key, 0) + n
 
     def accumulate(self, key: str, seconds: float) -> None:
         self.add_ns(key, round(seconds * 1e9))

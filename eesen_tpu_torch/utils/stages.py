@@ -6,7 +6,8 @@ end-to-end examples' results.json).
     with stages("train") as rec:
         run.train(...)
         rec["epochs"] = ...            # anything else the stage records
-    stages.rec["train"]    # {"seconds", "launches", "spans", "peak_gb", ...}
+    stages.rec["train"]    # {"seconds", "launches", "graphs", "spans",
+                           #  "peak_gb", ...}
 """
 
 from __future__ import annotations
@@ -18,16 +19,16 @@ import time
 import torch
 
 from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
-from eesen_tpu_torch.utils.profile import SPANS, profiler
+from eesen_tpu_torch.utils.profile import SPANS, graph_counts, profiler
 
 
 def launch_counts():
     """Every counter of the program, as integers, each key in every
-    snapshot: the kernel wrappers' launch counters (`kernel_launches`)
-    and, for each span of `utils.profile.SPANS`, its total wall
-    nanoseconds under "span_ns:<name>" and its count under
-    "span_n:<name>"."""
-    out = kernel_launches()
+    snapshot: the kernel wrappers' launch counters (`kernel_launches`),
+    the search's CUDA graph counters (`utils.profile.graph_counts`) and,
+    for each span of `utils.profile.SPANS`, its total wall nanoseconds
+    under "span_ns:<name>" and its count under "span_n:<name>"."""
+    out = {**kernel_launches(), **graph_counts}
     for name in SPANS:
         out[f"span_ns:{name}"] = profiler.ns[name]
         out[f"span_n:{name}"] = profiler.counts[name]
@@ -46,9 +47,9 @@ def kernel_launches():
 
 
 class Stages:
-    """Wall seconds, kernel launches and span seconds (those that moved)
-    and peak device memory of each stage, kept in `rec` and printed as
-    the stage ends.
+    """Wall seconds, kernel launches, the search's graph counters and span
+    seconds (those that moved) and peak device memory of each stage,
+    kept in `rec` and printed as the stage ends.
     CUDA is synchronized and its peak read only once the process has
     initialised it, so a run that stops before any device work never
     initialises it."""
@@ -62,6 +63,7 @@ class Stages:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         before, ns0 = kernel_launches(), dict(profiler.ns)
+        graphs0 = dict(graph_counts)
         t0 = time.perf_counter()
         rec = self.rec[name] = {}
         yield rec
@@ -71,6 +73,8 @@ class Stages:
         rec["seconds"] = time.perf_counter() - t0
         rec["launches"] = {k: after[k] - before[k] for k in after
                            if after[k] != before[k]}
+        rec["graphs"] = {k: v - graphs0[k] for k, v in graph_counts.items()
+                         if v != graphs0[k]}
         rec["spans"] = {k: (profiler.ns[k] - ns0[k]) * 1e-9
                         for k in SPANS if profiler.ns[k] != ns0[k]}
         if torch.cuda.is_initialized():

@@ -138,7 +138,9 @@ print(json.dumps({"spans": list(SPANS), "a": a, "b": b}))
     for name in res["spans"]:
         assert a[f"span_ns:{name}"] == 0 and a[f"span_n:{name}"] == 0
     assert set(tstages.kernel_launches()) <= set(a)
-    assert len(a) == len(tstages.kernel_launches()) + 2 * len(res["spans"])
+    assert set(tprof.graph_counts) <= set(a)
+    assert len(a) == (len(tstages.kernel_launches())
+                      + len(tprof.graph_counts) + 2 * len(res["spans"]))
     assert set(b) == set(a)
     assert all(isinstance(v, int) for v in (*a.values(), *b.values()))
     diff = {k: b[k] - a[k] for k in a if b[k] != a[k]}
@@ -155,6 +157,7 @@ def test_stages_keep_launches_and_spans_apart():
             time.sleep(0.001)
     rec = st.rec["work"]
     assert rec["launches"] == {}                 # no kernel on the CPU
+    assert rec["graphs"] == {}                   # nor a captured search
     assert list(rec["spans"]) == ["decode.traceback"]
     assert rec["spans"]["decode.traceback"] >= 1e-3
 
