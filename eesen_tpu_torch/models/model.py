@@ -1,5 +1,6 @@
 """Acoustic model: a stack of BiLSTM layers + affine output projection
-(counterpart of eesen_tpu/models/model.py).
+(counterpart of eesen_tpu/models/model.py), or a Conformer
+(models/conformer.py), chosen by the configuration's type.
 
 Mirrors the reference's topology (asr_egs/wsj/utils/model_topo.py emits
 N x <BiLstmParallel> + <AffineTransform> + <Softmax>).  `apply_model`
@@ -21,6 +22,8 @@ import torch
 from eesen_tpu_torch.models.bilstm import (
     BiLstmConfig, bilstm_layer_tm, init_bilstm_layer, split_generator,
 )
+from eesen_tpu_torch.models import conformer
+from eesen_tpu_torch.models.conformer import ConformerConfig
 
 Params = Dict[str, Any]
 
@@ -92,8 +95,11 @@ def init_model(
     gen: torch.Generator, cfg: AcousticModelConfig, device="cuda",
 ) -> Params:
     """Uniform ±param_range parameters drawn from `gen` (a CPU
-    torch.Generator), placed on `device`."""
+    torch.Generator), placed on `device` (a Conformer's:
+    `conformer.init_conformer`)."""
     device = check_device(device)
+    if isinstance(cfg, ConformerConfig):
+        return conformer.init_conformer(gen, cfg, device)
     layers: List[Params] = [
         init_bilstm_layer(gen, cfg.layer_cfg(i), device)
         for i in range(cfg.num_layers)
@@ -135,8 +141,14 @@ def apply_model(
     *,
     train: bool = False,
     rng: Optional[torch.Generator] = None,
+    buffers_out: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
     """feats [B, T, input_dim] -> logits [B, T, num_targets] (f32).
+
+    A Conformer (`conformer.apply_conformer`) gives [B, T', num_targets]
+    over the subsampled frames (`output_lengths`) and takes no `rng` (it
+    has no dropout); in training its updated BatchNorm statistics go to
+    `buffers_out`.  The LSTM stack has no buffers.
 
     The stack runs time-major (one transpose in, one out), as the JAX
     package does.  The output affine is a float32 torch.matmul of the
@@ -145,6 +157,9 @@ def apply_model(
     With `train`, dropout draws its masks from `rng` (a CPU
     torch.Generator, needed when the config has dropout), split into one
     generator per layer as the JAX package splits its key."""
+    if isinstance(cfg, ConformerConfig):
+        return conformer.apply_conformer(params, feats, lengths, cfg,
+                                         train=train, buffers_out=buffers_out)
     x = feats.transpose(0, 1)                             # [T, B, D]
     for i in range(cfg.num_layers):
         lrng = None if rng is None else split_generator(rng)
@@ -160,10 +175,21 @@ def apply_model(
     return logits.transpose(0, 1)                          # [B, T, V]
 
 
+def output_lengths(cfg, lengths):
+    """The frames of the model's output for input lengths (a tensor or a
+    numpy array): the Conformer's subsampling arithmetic; the LSTM's are
+    its input's, the same object returned."""
+    if isinstance(cfg, ConformerConfig):
+        return conformer.output_lengths(lengths)
+    return lengths
+
+
 def model_num_params(params: Params) -> int:
+    """Trained parameters (a Conformer's BatchNorm buffers not counted)."""
     def count(node):
         if isinstance(node, dict):
-            return sum(count(v) for v in node.values())
+            return sum(count(v) for k, v in node.items()
+                       if k != conformer.BUFFERS)
         if isinstance(node, (list, tuple)):
             return sum(count(v) for v in node)
         return int(node.numel())

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from eesen_tpu_torch.models.conformer import refuse
 from eesen_tpu_torch.models.model import AcousticModelConfig
 
 
@@ -140,7 +141,9 @@ def parse_nnet_proto(text: str) -> AcousticModelConfig:
 
 
 def emit_nnet_proto(cfg: AcousticModelConfig, max_grad: float = 50.0) -> str:
-    """AcousticModelConfig -> model_topo.py-compatible proto text."""
+    """AcousticModelConfig -> model_topo.py-compatible proto text (a
+    Conformer has no Eesen proto: NotImplementedError)."""
+    refuse(cfg, "proto.emit_nnet_proto")
     actual = cfg.layer_output_dim
     common = (f" <ParamRange> {cfg.param_range} <LearnRateCoef> 1.0"
               f" <MaxGrad> {max_grad}")

@@ -37,6 +37,7 @@ from eesen_tpu_torch.decoder.beam import (
     BeamSearchConfig, StreamingBeamDecoder, unpack_summary,
 )
 from eesen_tpu_torch.models.bilstm import _direction_scan
+from eesen_tpu_torch.models.conformer import refuse
 from eesen_tpu_torch.models.model import (
     AcousticModelConfig, as_tensor, check_device,
 )
@@ -49,6 +50,7 @@ Carry = List[Tuple[torch.Tensor, torch.Tensor]]
 def init_stream_state(
     cfg: AcousticModelConfig, batch_size: int, device="cuda",
 ) -> Carry:
+    refuse(cfg, "models/streaming")
     device = check_device(device)
     h = cfg.cell_dim
     return [
@@ -194,6 +196,7 @@ class StreamingAcousticModel:
 
     def __init__(self, params: Params, cfg: AcousticModelConfig,
                  device="cuda"):
+        refuse(cfg, "models/streaming")
         if cfg.bidirectional:
             raise ValueError("streaming requires bidirectional=False")
         self.params = params

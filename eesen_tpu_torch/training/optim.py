@@ -14,6 +14,10 @@ ONE concatenated parameter vector (its `flat=True` path):
                                                         (optax.scale_by_rss, initial 0)
   rmsprop   nu = (1-rho) * g*g + rho * nu; u = rsqrt(nu + eps) * g
                                                         (optax.scale_by_rms, eps inside)
+  adamw     mu = b1 * mu + (1-b1) * g; nu = b2 * nu + (1-b2) * g*g; count += 1;
+            u = (mu / (1-b1^count)) / (sqrt(nu / (1-b2^count)) + eps)
+                + weight_decay * p                      (optax.adamw: the decay
+                                                          decoupled, not in g)
   update    p = p + (-learning_rate) * u
 
 The learning rate is a per-step hyperparameter in the state
@@ -22,6 +26,9 @@ with the epoch's newbob rate.  Vectors are laid out as
 `jax.flatten_util.ravel_pytree` lays out the JAX parameters (dict keys
 sorted, lists in order, each leaf row-major), so `opt_state_from_jax`
 carries a JAX optimizer state across as it is.
+
+AdamW is the Conformer's optimizer (NeMo's recipe) and has no
+counterpart in the JAX package; it matches `torch.optim.AdamW`.
 
 Unlike the JAX package's flat path, which calls its chain without the
 parameters and so raises for weight_decay > 0, weight decay works here,
@@ -41,22 +48,27 @@ from eesen_tpu_torch.models.model import check_device
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    algorithm: str = "sgd"          # sgd | adagrad | rmsprop
+    algorithm: str = "sgd"          # sgd | adagrad | rmsprop | adamw
     momentum: float = 0.9           # (train-opts.h: momentum, default 0.0 in
                                     # C++ but recipes pass 0.9)
     max_grad: float = 50.0          # elementwise clip (bilstm-layer <MaxGrad>)
     adagrad_epsilon: float = 1e-10  # (train-opts.h adagrad_epsilon)
     rmsprop_rho: float = 0.9        # (train-opts.h rmsprop_rho)
-    weight_decay: float = 0.0       # l2 penalty (train-opts.h l2_penalty)
+    weight_decay: float = 0.0       # l2 penalty (train-opts.h l2_penalty);
+                                    # adamw: the decoupled decay
 
 
 # the accumulator each algorithm keeps, under optax's name for it
 _ACCUMULATOR = {"sgd": "trace", "adagrad": "sum_of_squares", "rmsprop": "nu"}
+_ADAM = ("mu", "nu")        # adamw's moments; its step count is "count"
+# adamw's moment decays and epsilon: NeMo's Conformer recipe
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-8
 
 
 class OptState(NamedTuple):
     """`hyperparams` holds the per-step learning rate; `inner` the
-    accumulator over the flat parameter vector (empty for plain SGD)."""
+    accumulator over the flat parameter vector (empty for plain SGD;
+    adamw's two moments and its step count)."""
     hyperparams: Dict[str, float]
     inner: Dict[str, torch.Tensor]
 
@@ -111,14 +123,18 @@ class Optimizer:
     by `apply_updates` (the optax protocol, over one flat vector)."""
 
     def __init__(self, cfg: OptimizerConfig):
-        if cfg.algorithm not in _ACCUMULATOR:
+        if cfg.algorithm not in (*_ACCUMULATOR, "adamw"):
             raise ValueError(f"unknown update algorithm: {cfg.algorithm}")
         self.cfg = cfg
 
     def init(self, params) -> OptState:
         flat = ravel(params)
         inner = {}
-        if self.cfg.algorithm != "sgd" or self.cfg.momentum > 0:
+        if self.cfg.algorithm == "adamw":
+            inner = {k: torch.zeros_like(flat) for k in _ADAM}
+            inner["count"] = torch.zeros((), dtype=torch.int64,
+                                         device=flat.device)
+        elif self.cfg.algorithm != "sgd" or self.cfg.momentum > 0:
             inner[_ACCUMULATOR[self.cfg.algorithm]] = torch.zeros_like(flat)
         return OptState({"learning_rate": 0.0}, inner)
 
@@ -127,7 +143,7 @@ class Optimizer:
         g = ravel(grads)
         if cfg.max_grad > 0:
             g = clip_by_value(g, cfg.max_grad)
-        if cfg.weight_decay > 0:
+        if cfg.weight_decay > 0 and cfg.algorithm != "adamw":
             g = g + cfg.weight_decay * ravel(params)
         inner = dict(state.inner)
         if cfg.algorithm == "sgd":
@@ -139,10 +155,21 @@ class Optimizer:
             inner["sum_of_squares"] = sos
             g = torch.where(sos > 0, torch.rsqrt(sos + cfg.adagrad_epsilon),
                             0.0) * g
-        else:
+        elif cfg.algorithm == "rmsprop":
             nu = (1 - cfg.rmsprop_rho) * g.pow(2) + cfg.rmsprop_rho * inner["nu"]
             inner["nu"] = nu
             g = torch.rsqrt(nu + cfg.adagrad_epsilon) * g
+        else:
+            b1, b2 = ADAM_B1, ADAM_B2
+            mu = torch.lerp(inner["mu"], g, 1 - b1)
+            nu = torch.lerp(inner["nu"], g * g, 1 - b2)
+            count = inner["count"] + 1
+            inner.update(mu=mu, nu=nu, count=count)
+            n = count.to(g.dtype)
+            g = (mu / (1 - b1 ** n)) / (
+                torch.sqrt(nu / (1 - b2 ** n)) + ADAM_EPS)
+            if cfg.weight_decay > 0:
+                g = g + cfg.weight_decay * ravel(params)
         u = -torch.as_tensor(state.hyperparams["learning_rate"],
                              dtype=g.dtype, device=g.device) * g
         return unravel(grads, u), OptState(state.hyperparams, inner)

@@ -45,8 +45,10 @@ import numpy as np
 import torch
 
 from eesen_tpu_torch.models.bilstm import split_generator
+from eesen_tpu_torch.models.conformer import BUFFERS, refuse
 from eesen_tpu_torch.models.model import (
     AcousticModelConfig, apply_model, as_tensor, check_device, init_model,
+    output_lengths,
 )
 from eesen_tpu_torch.ops.ce import ce_loss
 from eesen_tpu_torch.ops.ctc import ctc_loss
@@ -82,20 +84,31 @@ def create_train_state(
     torch.Generator) on `device`, a fresh optimizer state, step 0."""
     params = init_model(gen, model_cfg, device)
     tx = make_optimizer(opt_cfg)
-    return TrainState(params, tx.init(params), 0), tx
+    return TrainState(params, tx.init(trained(params)), 0), tx
+
+
+def trained(params):
+    """`params` without a Conformer's BatchNorm buffers (`buffers`): the
+    tree that gradients and the optimizer see."""
+    if isinstance(params, dict) and BUFFERS in params:
+        return {k: v for k, v in params.items() if k != BUFFERS}
+    return params
 
 
 def _obj_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
-                     with_argmax=True):
+                     with_argmax=True, buffers_out=None):
     """Unnormalized objective sum + monitor metrics for one batch.
 
-    loss="ctc": per-utterance CTC negative log-likelihood.  loss="ce":
+    loss="ctc": per-utterance CTC negative log-likelihood over the
+    model's output frames (`output_lengths`: a Conformer's subsampled
+    lengths, the LSTM's input lengths).  loss="ce":
     per-frame cross entropy against frame-aligned labels (labels [B, T],
-    BatchConfig(frame_labels=True)); metrics gain a `correct` count."""
+    BatchConfig(frame_labels=True)); metrics gain a `correct` count.
+    A model with buffers puts their training update in `buffers_out`."""
     with profiler.track("train.forward"):
         logits = apply_model(
             params, batch["feats"], batch["feat_lengths"], model_cfg,
-            train=train, rng=rng,
+            train=train, rng=rng, buffers_out=buffers_out,
         )
     metrics = {}
     if with_argmax:
@@ -109,19 +122,18 @@ def _obj_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
             obj_sum=m["obj_sum"], frames=m["frames"], correct=m["correct"],
         )
         return m["obj_sum"], metrics
+    lengths = output_lengths(model_cfg, batch["feat_lengths"])
     with profiler.track("train.loss"):
-        nll = ctc_loss(
-            logits, batch["feat_lengths"], batch["labels"],
-            batch["label_lengths"],
-        )
-    metrics.update(obj_sum=nll.sum(), frames=batch["feat_lengths"].sum())
+        nll = ctc_loss(logits, lengths, batch["labels"],
+                       batch["label_lengths"])
+    metrics.update(obj_sum=nll.sum(), frames=lengths.sum())
     return nll.sum(), metrics
 
 
 def _loss_and_metrics(params, batch, model_cfg, rng, train, loss="ctc",
-                      with_argmax=True):
+                      with_argmax=True, buffers_out=None):
     obj, metrics = _obj_and_metrics(params, batch, model_cfg, rng, train,
-                                    loss, with_argmax)
+                                    loss, with_argmax, buffers_out)
     frames = torch.clamp(metrics["frames"], min=1).to(obj.dtype)
     return obj / frames, metrics
 
@@ -139,7 +151,9 @@ def make_train_step(
     step's dropout masks.  A call's
     `with_argmax` overrides the default given here (eager PyTorch needs no
     second step function for it).  The returned state holds new tensors;
-    the old state is left as it was."""
+    the old state is left as it was.  A Conformer's BatchNorm buffers
+    (`params["buffers"]`) come back updated once a step; no gradient or
+    optimizer sees them."""
     loss_kind = loss
     argmax_default = with_argmax
 
@@ -147,20 +161,26 @@ def make_train_step(
                    with_argmax: Optional[bool] = None):
         if with_argmax is None:
             with_argmax = argmax_default
-        leaves = [p.detach().requires_grad_() for p in
-                  tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
+        kept = trained(state.params)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(kept)]
+        params = tree_unflatten(kept, leaves)
+        buffers = {}
+        if kept is not state.params:
+            params[BUFFERS] = state.params[BUFFERS]
         loss_val, metrics = _loss_and_metrics(
-            params, batch, model_cfg, rng, True, loss_kind, with_argmax
+            params, batch, model_cfg, rng, True, loss_kind, with_argmax,
+            buffers,
         )
         with profiler.track("train.backward"):
             grads = torch.autograd.grad(loss_val, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss_val.detach()
         with profiler.track("train.optimizer"):
-            new = _update(tx, state,
-                          tree_unflatten(state.params, list(grads)),
+            new = _update(tx, state, tree_unflatten(kept, list(grads)),
                           learn_rate)
+        if buffers:
+            new = new._replace(params={**new.params,
+                                       BUFFERS: buffers[BUFFERS]})
         return new, metrics
 
     return train_step
@@ -172,8 +192,9 @@ def _update(tx: Optimizer, state: TrainState, grads, learn_rate) -> TrainState:
     opt_state = state.opt_state._replace(hyperparams=dict(
         state.opt_state.hyperparams, learning_rate=float(learn_rate)
     ))
-    updates, new_opt_state = tx.update(grads, opt_state, state.params)
-    return TrainState(apply_updates(state.params, updates), new_opt_state,
+    params = trained(state.params)
+    updates, new_opt_state = tx.update(grads, opt_state, params)
+    return TrainState(apply_updates(params, updates), new_opt_state,
                       state.step + 1)
 
 
@@ -215,7 +236,9 @@ def make_shard_map_train_step(
     - `rng` is the same generator on every rank, as the JAX step's key is
       replicated: rank r's rows get rank 0's dropout masks for its local
       shape, so a step with dropout is not the single-process step over
-      all the rows."""
+      all the rows.
+    - A Conformer is refused (NotImplementedError)."""
+    refuse(model_cfg, "make_shard_map_train_step")
     loss_kind = loss
     argmax_default = with_argmax
 
@@ -405,7 +428,8 @@ class Trainer:
                 process(pending)
             pending = (
                 metrics,
-                (np.asarray(batch["feat_lengths"]),
+                (output_lengths(self.cfg.model,
+                                np.asarray(batch["feat_lengths"])),
                  np.asarray(batch["labels"]),
                  np.asarray(batch["label_lengths"])),
                 n % ter_step == 0,
@@ -504,7 +528,8 @@ class Trainer:
         return max(epochs) if epochs else None
 
     def save_checkpoint(self, epoch: int) -> None:
-        """epoch_<N>/state.pt (parameters, optimizer state, step) and
+        """epoch_<N>/state.pt (parameters, a Conformer's BatchNorm buffers
+        among them, optimizer state, step) and
         sched.json, each written under a private name and renamed into
         place.  Under a mesh every rank takes part in gathering the whole
         parameters, rank 0 writes them and every rank waits for it, so

@@ -55,6 +55,11 @@ SPANS = (
     "decode.closure",        # a frame's epsilon phase (these three on
     #                          the eager frames only)
     "decode.traceback",      # traceback: copies to the host + the walk
+    "model.subsample",       # a Conformer's x4 convolutional subsampling
+    "conformer.ffn",         # each of a Conformer layer's two feed-forward
+    #                          blocks, LayerNorm included
+    "conformer.attention",   # a layer's relative-position attention block
+    "conformer.conv",        # a layer's convolution module
 )
 
 # The search's CUDA graph counters (decoder/beam.py), beside the spans in

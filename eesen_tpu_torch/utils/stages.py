@@ -18,7 +18,9 @@ import time
 
 import torch
 
-from eesen_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda
+from eesen_tpu_torch.ops import (
+    beam_cuda, ctc_cuda, lstm_cuda, lstm_v1_cuda, rel_attention,
+)
 from eesen_tpu_torch.utils.profile import SPANS, graph_counts, profiler
 
 
@@ -36,14 +38,17 @@ def launch_counts():
 
 
 def kernel_launches():
-    """The kernel wrappers' launch counters (ops/*_cuda.py)."""
+    """The kernel wrappers' launch counters (ops/*_cuda.py) and the calls
+    of the relative-position attention ops (ops/rel_attention.py)."""
     return {"lstm_fwd": lstm_cuda.launches,
             "lstm_bwd": lstm_cuda.bwd_launches,
             "lstm_scan_fwd": lstm_v1_cuda.launches,
             "lstm_scan_bwd": lstm_v1_cuda.bwd_launches,
             "ctc_alpha": ctc_cuda.alpha_launches,
             "ctc_beta": ctc_cuda.beta_launches,
-            "dedup_prune": beam_cuda.launches}
+            "dedup_prune": beam_cuda.launches,
+            "rel_attention_fwd": rel_attention.fwd_calls,
+            "rel_attention_bwd": rel_attention.bwd_calls}
 
 
 class Stages:

@@ -133,3 +133,66 @@ def test_ravel_matches_jax_layout():
 def test_unknown_algorithm_raises():
     with pytest.raises(ValueError, match="unknown update algorithm"):
         toptim.make_optimizer(toptim.OptimizerConfig(algorithm="adam"))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-3])
+def test_adamw_matches_torch_optim_adamw(weight_decay):
+    """Five steps of `Optimizer(adamw)` over the flat vector against
+    `torch.optim.AdamW` leaf by leaf with the same betas, epsilon and
+    decoupled weight decay: the same formula in another order of
+    operations, so float32 round-off apart (atol 1e-6 on values of ~0.1
+    moved by ~5 * lr)."""
+    params = tmodel.params_from_jax(jax_params(), device="cpu")
+    lr, b1, b2, eps = 1e-2, toptim.ADAM_B1, toptim.ADAM_B2, toptim.ADAM_EPS
+    assert (b1, b2, eps) == (0.9, 0.98, 1e-8)       # NeMo's Conformer recipe
+    tx = toptim.make_optimizer(toptim.OptimizerConfig(
+        algorithm="adamw", max_grad=0.0, weight_decay=weight_decay))
+    st = tx.init(params)
+    st = st._replace(hyperparams={"learning_rate": lr})
+    assert set(st.inner) == {"mu", "nu", "count"}
+    ref = [p.clone().requires_grad_() for p in toptim.tree_leaves(params)]
+    opt = torch.optim.AdamW(ref, lr=lr, betas=(b1, b2), eps=eps,
+                            weight_decay=weight_decay)
+    p = params
+    for i in range(5):
+        g = tmodel.params_from_jax(grads_like(jax_params(), i), device="cpu")
+        upd, st = tx.update(g, st, p)
+        p = toptim.apply_updates(p, upd)
+        for r, gi in zip(ref, toptim.tree_leaves(g)):
+            r.grad = gi.clone()
+        opt.step()
+    assert int(st.inner["count"]) == 5
+    for a, b in zip(toptim.tree_leaves(p), ref):
+        np.testing.assert_allclose(a.numpy(), b.detach().numpy(), rtol=0,
+                                   atol=1e-6)
+    # the first moment is the optimizer's: (1 - b1) g after one step
+    st1 = tx.init(params)
+    g0 = tmodel.params_from_jax(grads_like(jax_params(), 0), device="cpu")
+    _, st1 = tx.update(g0, st1._replace(hyperparams={"learning_rate": lr}),
+                       params)
+    np.testing.assert_allclose(st1.inner["mu"].numpy(),
+                               ((1 - b1) * toptim.ravel(g0)).numpy(),
+                               rtol=1e-6, atol=0)
+
+
+def test_buffers_are_no_leaves():
+    """A `buffers` entry (a Conformer's BatchNorm statistics) is kept from
+    the optimizer by the trainer (`trained`), which leaves the LSTM's
+    tree as the same object; the optimizer's own tree functions treat
+    every key alike."""
+    from eesen_tpu_torch.training.trainer import trained
+
+    tree = {"w": torch.ones(2), "buffers": [{"mean": torch.zeros(3)}],
+            "b": torch.zeros(1)}
+    kept = trained(tree)
+    assert [t.shape for t in toptim.tree_leaves(kept)] == [(1,), (2,)]
+    assert tree["buffers"][0]["mean"].shape == (3,)
+    tx = toptim.make_optimizer(toptim.OptimizerConfig(algorithm="adamw"))
+    assert tx.init(kept).inner["mu"].shape == (3,)
+    assert toptim.ravel(tree).shape == (6,)
+    out = toptim.tree_unflatten(kept, [torch.full((1,), 5.0),
+                                       torch.full((2,), 7.0)])
+    assert set(out) == {"w", "b"}
+    assert out["b"].tolist() == [5.0] and out["w"].tolist() == [7.0, 7.0]
+    lstm = {"layers": [{"w": torch.ones(2)}], "out": torch.zeros(1)}
+    assert trained(lstm) is lstm

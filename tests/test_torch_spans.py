@@ -264,3 +264,53 @@ def test_compaction_and_chunked_search_count_their_spans(tlg):
     assert moved(before) == {"decode.search": 1, "decode.frame": t,
                              "decode.expand": t, "decode.merge": t,
                              "decode.closure": t}
+
+
+CONFORMER = dict(input_dim=16, d_model=32, n_layers=2, n_heads=4,
+                 conv_kernel_size=5, subsampling_conv_channels=16,
+                 num_targets=7)
+CONFORMER_SPANS = ("model.subsample", "conformer.ffn", "conformer.attention",
+                   "conformer.conv")
+
+
+def test_conformer_spans_and_op_counters_are_there_from_the_start():
+    """The four Conformer spans are in SPANS, so their keys are in every
+    snapshot at zero (test_launch_counts_hold_every_span_key_from_the_
+    start), and the attention ops' two counters are kernel counters."""
+    assert set(CONFORMER_SPANS) <= set(tprof.SPANS)
+    a = tstages.launch_counts()
+    for name in CONFORMER_SPANS:
+        assert f"span_ns:{name}" in a and f"span_n:{name}" in a
+    for key in ("rel_attention_fwd", "rel_attention_bwd"):
+        assert key in tstages.kernel_launches() and isinstance(a[key], int)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_conformer_step_counts_its_spans_and_ops_once_a_layer(train):
+    """A Conformer step through run_epoch: the subsampling once, each
+    layer's attention and convolution module once and its two
+    feed-forward blocks twice; the attention op forward once a layer,
+    and in training its backward once a layer."""
+    from eesen_tpu_torch.models.conformer import ConformerConfig
+
+    n = CONFORMER["n_layers"]
+    cfg = ttrainer.TrainerConfig(
+        model=ConformerConfig(**CONFORMER, compute_dtype=torch.float32),
+        optimizer=OptimizerConfig(algorithm="adamw", max_grad=0.0))
+    tr = ttrainer.Trainer(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    b = {"feats": rng.standard_normal((2, 40, 16)).astype(np.float32),
+         "feat_lengths": np.array([40, 29], np.int32),
+         "labels": np.array([[1, 2, 3], [4, 5, 0]], np.int32),
+         "label_lengths": np.array([3, 2], np.int32)}
+    before, k0 = span_counts(), tstages.kernel_launches()
+    tr.run_epoch(iter([dict(b), dict(b)]), train, 1e-3)
+    got = moved(before)
+    k1 = tstages.kernel_launches()
+    assert {k: got[k] for k in CONFORMER_SPANS} == {
+        "model.subsample": 2, "conformer.ffn": 2 * 2 * n,
+        "conformer.attention": 2 * n, "conformer.conv": 2 * n}
+    assert k1["rel_attention_fwd"] - k0["rel_attention_fwd"] == 2 * n
+    assert k1["rel_attention_bwd"] - k0["rel_attention_bwd"] == (
+        2 * n if train else 0)
+    assert k1["lstm_fwd"] == k0["lstm_fwd"]
