@@ -8,7 +8,9 @@ Phases, one JSON line each:
   lstm    kernel lstm_fwd vs its plain version on the card, at the
           flagship layer shapes (B=8, T=512, H=320, D in {120, 640}, mixed
           lengths, state_bf16 on and off): rtol 2e-2 / atol 2e-3, the JAX
-          package's own tolerance for its bf16 kernel.
+          package's own tolerance for its bf16 kernel; then kernels 1 and
+          4 at the kernel table's shapes (`recurrence_steps`): ms a call,
+          the recurrence's microseconds a step and the plan.
   dedup   kernel dedup_prune vs its plain version on the card (B=8, K=512,
           m in {4096, 14336}), then on the adversarial rows of
           tests/dedup_cases.py (-0.0/+0.0, negative scores, ties, all
@@ -509,7 +511,58 @@ def phase_lstm(dev):
             if not ok:
                 raise AssertionError(f"lstm_fwd D={d} state_bf16={sb}: "
                                      f"max abs err {err}")
-    return {"max_abs_err": errs, "rtol": LSTM_RTOL, "atol": LSTM_ATOL}
+    return {"max_abs_err": errs, "rtol": LSTM_RTOL, "atol": LSTM_ATOL,
+            "steps": recurrence_steps(dev)}
+
+
+# kernel 1's shapes in PERF.md's kernel table: (serving B=8, T=512 or
+# training B=128, T=768 with residuals, H, D)
+K1_TABLE = (("serve", 320, 120), ("serve", 320, 640), ("train", 320, 120),
+            ("train", 320, 640), ("serve", LIBRI_H, LIBRI_D),
+            ("serve", LIBRI_H, 2 * LIBRI_H), ("train", LIBRI_H, LIBRI_D),
+            ("train", LIBRI_H, 2 * LIBRI_H))
+
+
+def recurrence_steps(dev):
+    """Kernels 1 and 4 at the kernel table's shapes: ms a call (CUDA
+    events, median) and the recurrence's microseconds a step (kernel 1:
+    its recurrence's device ms per launch from the profiler, over T;
+    kernel 4, which is the recurrence alone: the call over T), with the
+    plan."""
+    import torch
+    from eesen_tpu_torch.ops import lstm_cuda, lstm_v1_cuda
+
+    out = {}
+    for kind, h, d in K1_TABLE:
+        if kind == "serve":
+            inp, b, t = lstm_inputs(d, h, dev, SEED + d), B, T_MAX
+            res = False
+        else:
+            inp, _ = train_lstm_inputs(d, h, dev, SEED + d + 1, True)
+            b, t, res = TRAIN_B, TRAIN_T, True
+
+        def k1():
+            return lstm_cuda.lstm_direction(**inp, state_bf16=True,
+                                            with_residuals=res)
+
+        plan = lstm_cuda.fwd_plan(b, h)
+        rec = _device_split(k1, {"recurrence": ("lstm_rec_kernel",)})
+        rec_ms = _per_call(rec["recurrence"], rec["recurrence"]["launches"])
+        out[f"lstm_fwd_{kind}_H{h}_D{d}"] = dict(
+            ms=_cuda_ms(k1, 5), recurrence_ms=rec_ms,
+            us_per_step=rec_ms * 1e3 / t if rec_ms is not None else None,
+            plan=plan._asdict(), shape=f"B={b} T={t} D={d} H={h}")
+        del inp
+    for h, seed in ((LIBRI_H, SEED + 21), (V1_H, SEED + 25)):
+        inp = scan_inputs(dev, seed, h)
+        ms = _cuda_ms(lambda: lstm_v1_cuda.lstm_scan_fwd(**inp), 3)
+        plan = lstm_cuda.fwd_plan(TRAIN_B, h)
+        out[f"lstm_scan_fwd_H{h}"] = dict(
+            ms=ms, us_per_step=ms * 1e3 / TRAIN_T, plan=plan._asdict(),
+            shape=f"B={TRAIN_B} T={TRAIN_T} H={h}")
+        del inp
+        torch.cuda.empty_cache()
+    return out
 
 
 def dedup_inputs(m: int, dev, seed: int):

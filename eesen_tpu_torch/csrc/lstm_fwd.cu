@@ -33,23 +33,56 @@
 //       cluster's rows and the CTA's 4U columns (bf16: mma.sync m16n8k16, bf16
 //       in, f32 accumulate, operands in XOR-swizzled rows so the fragment
 //       loads hit 32 banks; f32: FMA), plus xw_t; the gates and the freeze;
-//       the outputs; then the new m, rounded to the type of x, is written
-//       into the next-step operand buffer of every CTA of the cluster through
-//       distributed shared memory (double-buffered), and one cluster barrier
-//       (barrier.cluster.arrive.release / wait.acquire) ends the step.
+//       then the new m, rounded to the type of x, goes into the next-step
+//       operand buffer of every CTA of the cluster through distributed
+//       shared memory (double-buffered), and a split cluster barrier ends
+//       the step.
+//
+// What keeps the step's serial chain short.  The chain is product, gate
+// phase, exchange, barrier, T times over; at B=128, H=320 on an H100 (700 W,
+// clock stamps of CTA 0 in a scratch build, medians) it took 6.7 + 6.5 +
+// 0.8 us a step with one cluster.sync() a step, and takes 3.7 (product) +
+// 3.2 (gates and exchange) + 1.7 (stores and barrier) us here:
+//   - The product's fragments by ldmatrix, and 2 column tiles a warp where
+//     the CTA's 4U columns take at most two a warp (U <= 64), else 3, so
+//     that no warp takes a second round (the instance's NG): 6.7 -> 3.7 us.
+//   - xw and the mask under the product.  Each thread owns up to EPT (row,
+//     unit) elements of the gate phase (3, or 6 for kernel 4's wide plans);
+//     their four xw_t values and mask_t are loaded into registers right
+//     after the step's barrier wait, so the DRAM latency of xw ([T,B,4H]
+//     f32, far larger than L2) runs under the product instead of opening
+//     every round of the gate phase.  Issued before the arrive or the wait,
+//     the loads hold the release or the acquire: 0.9 us more.
+//   - A split barrier.  barrier.cluster.arrive.release follows the exchange;
+//     the step's global stores (m, c, gates, c_raw), which the release would
+//     otherwise wait for, go between the arrive and the next step's
+//     barrier.cluster.wait.acquire, which comes just before the next product
+//     reads its operand.  The gates and c_raw wait in the pre-activation
+//     tile meanwhile, so a __syncthreads after the wait keeps the next
+//     product from overwriting them before they are stored.  A peer writes
+//     into a buffer half only after the wait of the step that read it, so
+//     every CTA has read it by then.
+// The exchange stays one 2-byte (bf16) or 4-byte store per peer and element,
+// issued inside the gate phase: a warp's stores to one peer coalesce and run
+// under the gate arithmetic.  A 16-byte push per peer (m_t staged in the
+// CTA's own operand, then copied out) and 16-byte output stores were each
+// measured slower (7.06 and 7.10 against 6.92 ms a call at B=128, T=768,
+// H=320, D=640).
+// The product and the gate arithmetic are those of the one-barrier step, in
+// the same order: the outputs are the same bits.
 //
 // The recurrence is also kernel 4, the v1 route's forward (`_fwd_kernel`,
 // eesen_tpu/ops/lstm_pallas.py:50, computing lstm_pallas.py:70-91): entry
 // lstm_scan_fwd_rec launches it alone, bf16 operand and f32 state, over the
 // caller's xw, and writes c_raw (the cell before the mask freeze, f32)
-// beside the c carry through `craw_out`, null for kernel 1.  The host plan
-// is the same (ops/lstm_cuda.py fwd_plan; H <= 2624, past which the route
+// beside the c carry through `craw_out`, null for kernel 1 (only the bf16
+// instance writes it).  The host plan is the same (ops/lstm_cuda.py fwd_plan; H <= 2624, past which the route
 // runs csrc/lstm_scan_fwd.cu).
 //
 // Bound.  Per direction-layer the work is 2*B*T*(D+H)*4H FLOP: at B=8,
 // T=512, H=320 that is 4.6 GFLOP for D=120 and 10.1 GFLOP for D=640, i.e.
 // ~5 us and ~10 us at the H100's 989 TFLOP/s (bf16).  The real floor is the
-// T-step serial chain: one cluster barrier and one DSMEM exchange a step.
+// T-step serial chain above.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -64,8 +97,20 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+// (row, unit) elements a thread owns, rows*U <= EPT*THREADS: the kernel's
+// instances take 3 or 6 (kernel 4's wide plans)
+constexpr int EPT_MAX = 6;
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// the two halves of a cluster barrier
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
 // 32-bit word `kw` of row `row` in a tile of rows of `rw` words (rw a
 // multiple of 32): XOR-swizzled inside each 32-word block, so that the eight
@@ -91,50 +136,123 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 // (32-word swizzle blocks); the f32 path keeps H.
 __host__ __device__ inline int kpad(int H, bool bf16) { return bf16 ? (H + 63) / 64 * 64 : H; }
 
+// a pair (k, k+1) of one column of W_m^T from global memory (L2), zero past H
+// and for a unit the CTA does not own: one 4-byte load where the pair is
+// whole (H even keeps every row 4-byte aligned)
+__device__ __forceinline__ uint32_t wm_pair(const __nv_bfloat16* __restrict__ wg, int k, int H,
+                                            bool valid) {
+  if (valid && k + 1 < H && (H & 1) == 0)
+    return __ldg(reinterpret_cast<const unsigned int*>(wg + k));
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  return pack2(valid && k < H ? wg[k] : zero, valid && k + 1 < H ? wg[k + 1] : zero);
+}
+
+// four (x4) or two (x2) 8x8 bf16 matrices from shared memory into mma
+// fragments: lanes 8i..8i+7 give the addresses of matrix i's eight rows of
+// 16 bytes
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// the A fragments of k-step ks for each 16-row tile (mt of them): lane l
+// addresses row l % 16, k-words from (l / 16) * 4, of the swizzled operand
+__device__ __forceinline__ void load_a(const uint32_t* a32, uint32_t (&a)[2][4], int mt,
+                                       int lane, int ks, int rwa) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    if (m < mt) ldsm_x4(a[m], a32 + swz(m * 16 + (lane & 15), ks * 8 + (lane >> 4) * 4, rwa));
+}
+
 // pre[r][j] = sum over k of op[r][k] W[k][j] for the CTA's 4U columns, on the
-// tensor cores: one warp per 16x8 output tile.  wmT rows past kres come from
-// global memory.
+// tensor cores.  A warp takes up to NG 8-column tiles and every 16-row tile
+// (rows <= 32) at once: each B fragment it loads feeds every row tile, each A
+// fragment every column tile, and their accumulator chains run side by side;
+// each output still sums its k-steps in order.  Fragments from shared memory
+// come by ldmatrix (one instruction a 16x16 A or 16x8 B fragment); wmT rows
+// past kres come from global memory (L2) in 4-byte pairs.
+template <int NG>
 __device__ __forceinline__ void rec_product(const __nv_bfloat16* op, const __nv_bfloat16* ws,
                                             const __nv_bfloat16* __restrict__ wmT, float* pre,
                                             int H, int U, int u0, int nu, int rows, int Kp,
                                             int kres) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int cols = 4 * U;
-  const int ntiles = cols / 8, tiles = (rows / 16) * ntiles;
+  const int cols = 4 * U, ntiles = cols / 8, mt = rows / 16;
+  const int ng = min(NG, (ntiles + WARPS - 1) / WARPS);
+  const int groups = (ntiles + ng - 1) / ng;
   const uint32_t* a32 = reinterpret_cast<const uint32_t*>(op);
   const uint32_t* w32 = reinterpret_cast<const uint32_t*>(ws);
-  const int rwa = Kp / 2, rww = kres / 2;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  for (int tile = warp; tile < tiles; tile += THREADS / 32) {
-    const int r0 = (tile / ntiles) * 16, n0 = (tile % ntiles) * 8;
-    const int j = n0 + gq;  // this lane's column of B
-    const int g = j / U, u = j % U;
-    const bool valid = u < nu;
-    const __nv_bfloat16* wg = wmT + (size_t)(g * H + u0 + (valid ? u : 0)) * H;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int ks = 0; ks < Kp / 16; ++ks) {
-      const int kw = ks * 8 + tq;
-      uint32_t a[4], b[2];
-      a[0] = a32[swz(r0 + gq, kw, rwa)];
-      a[1] = a32[swz(r0 + gq + 8, kw, rwa)];
-      a[2] = a32[swz(r0 + gq, kw + 4, rwa)];
-      a[3] = a32[swz(r0 + gq + 8, kw + 4, rwa)];
-      if (ks * 16 < kres) {
-        b[0] = w32[swz(j, kw, rww)];
-        b[1] = w32[swz(j, kw + 4, rww)];
-      } else {
-        const int k = 2 * kw;
-        b[0] = pack2(valid && k < H ? wg[k] : zero, valid && k + 1 < H ? wg[k + 1] : zero);
-        b[1] = pack2(valid && k + 8 < H ? wg[k + 8] : zero,
-                     valid && k + 9 < H ? wg[k + 9] : zero);
-      }
-      mma_bf16(acc, a, b);
+  const int rwa = Kp / 2, rww = kres / 2, kr = kres / 16, kn = Kp / 16;
+  for (int grp = warp; grp < groups; grp += WARPS) {
+    int jc[NG];  // this lane's column of B in each tile
+    const __nv_bfloat16* wg[NG];
+    bool live[NG], valid[NG];
+    float acc[NG][2][4];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int nt = grp * ng + i;
+      live[i] = i < ng && nt < ntiles;
+      jc[i] = (live[i] ? nt : grp * ng) * 8 + gq;
+      const int g = jc[i] / U, u = jc[i] % U;
+      valid[i] = live[i] && u < nu;
+      wg[i] = wmT + (size_t)(g * H + u0 + (valid[i] ? u : 0)) * H;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][m][e] = 0.0f;
     }
-    pre[(r0 + gq) * cols + n0 + 2 * tq] = acc[0];
-    pre[(r0 + gq) * cols + n0 + 2 * tq + 1] = acc[1];
-    pre[(r0 + gq + 8) * cols + n0 + 2 * tq] = acc[2];
-    pre[(r0 + gq + 8) * cols + n0 + 2 * tq + 1] = acc[3];
+#pragma unroll 4
+    for (int ks = 0; ks < kr; ++ks) {  // resident rows
+      uint32_t a[2][4];
+      load_a(a32, a, mt, lane, ks, rwa);
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        if (live[i]) {
+          uint32_t b[2];
+          ldsm_x2(b, w32 + swz(jc[i] - gq + (lane & 7), ks * 8 + ((lane >> 3) & 1) * 4, rww));
+          mma_bf16(acc[i][0], a[0], b);
+          if (mt > 1) mma_bf16(acc[i][1], a[1], b);
+        }
+      }
+    }
+#pragma unroll 4
+    for (int ks = kr; ks < kn; ++ks) {  // rows from L2
+      const int k = 16 * ks + 2 * tq;
+      uint32_t a[2][4];
+      load_a(a32, a, mt, lane, ks, rwa);
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        if (live[i]) {
+          const uint32_t b[2] = {wm_pair(wg[i], k, H, valid[i]),
+                                 wm_pair(wg[i], k + 8, H, valid[i])};
+          mma_bf16(acc[i][0], a[0], b);
+          if (mt > 1) mma_bf16(acc[i][1], a[1], b);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      if (live[i]) {
+        const int n = (grp * ng + i) * 8 + 2 * tq;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          if (m < mt) {
+            float* p = pre + (m * 16 + gq) * cols + n;
+            p[0] = acc[i][m][0];
+            p[1] = acc[i][m][1];
+            p[8 * cols] = acc[i][m][2];
+            p[8 * cols + 1] = acc[i][m][3];
+          }
+        }
+      }
+    }
   }
 }
 
@@ -166,7 +284,27 @@ __device__ __forceinline__ void rec_product(const float* op, const float* ws,
   }
 }
 
-template <typename TIn, typename TState>
+// xw_t (g, i, f, o) and mask_t of this thread's elements e = tid + i*THREADS
+// of the gate phase, element e being (row e / nu, unit u0 + e % nu)
+template <int EPT>
+__device__ __forceinline__ void fetch_step(const float* __restrict__ xw,
+                                           const float* __restrict__ mask, float (&xr)[EPT][4],
+                                           float (&mr)[EPT], int t, int B, int H, int b0,
+                                           int u0, int nu, int ne) {
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (e < ne) {
+      const size_t row = (size_t)t * B + b0 + e / nu;
+      const float* x4 = xw + row * 4 * H + u0 + e % nu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xr[i][g] = x4[g * H];
+      mr[i] = mask[row];
+    }
+  }
+}
+
+template <typename TIn, typename TState, int EPT, int NG>
 __global__ void __launch_bounds__(THREADS)
     lstm_rec_kernel(const float* __restrict__ xw, const float* __restrict__ mask,
                     const TIn* __restrict__ w, const float* __restrict__ ph,
@@ -217,53 +355,109 @@ __global__ void __launch_bounds__(THREADS)
   for (int e = tid; e < 2 * rows * U; e += THREADS) cs[e] = 0.0f;  // c and m carries
   cluster.sync();  // every CTA's buffers are zero before any remote write
 
+  const int ne = nr * nu;
+  // this thread's elements e = tid + i*THREADS: xw_t (g, i, f, o) and mask_t
+  float xr[EPT][4], mr[EPT];
+
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
-    rec_product(op + cur * rows * Kp, ws, w, pre, H, U, u0, nu, rows, Kp, kres);
+    TIn* nxt = op + (cur ^ 1) * rows * Kp;  // m_t's operand buffer, here and in every peer
+    if (t > 0) {
+      cluster_wait();   // m_{t-1} has landed from every peer
+      __syncthreads();  // step t-1's outputs have left pre
+    }
+    // xw_t and mask_t, in flight under the product (after the wait, which
+    // would wait for them)
+    fetch_step(xw, mask, xr, mr, t, B, H, b0, u0, nu, ne);
+    if constexpr (BF16)
+      rec_product<NG>(op + cur * rows * Kp, ws, w, pre, H, U, u0, nu, rows, Kp, kres);
+    else
+      rec_product(op + cur * rows * Kp, ws, w, pre, H, U, u0, nu, rows, Kp, kres);
     __syncthreads();
-    // the gates, the mask freeze and the outputs for every (row, unit)
-    for (int e = tid; e < nr * nu; e += THREADS) {
-      const int r = e / nu, u = e % nu, hu = u0 + u;
-      const size_t row = (size_t)t * B + b0 + r;
-      const float* x4 = xw + row * G + hu;
-      const float* p4 = pre + r * cols + u;
-      const float c_prev = cs[r * U + u];
-      const float m_prev = ms[r * U + u];
-      const float gg = tanhf(x4[0] + p4[0]);
-      const float ig = sigm(x4[H] + p4[U] + c_prev * ph[hu]);
-      const float fg = sigm(x4[2 * H] + p4[2 * U] + c_prev * ph[H + hu]);
-      const float c_raw = fg * c_prev + ig * gg;
-      const float og = sigm(x4[3 * H] + p4[3 * U] + c_raw * ph[2 * H + hu]);
-      const float m_raw = og * tanhf(c_raw);
-      const float mt = mask[row];
-      const float c_new = c_raw * mt + c_prev * (1.0f - mt);
-      const float m_new = m_raw * mt + m_prev * (1.0f - mt);
-      cs[r * U + u] = c_new;
-      ms[r * U + u] = m_new;
-      m_out[row * H + hu] = from_f<TState>(m_new);
-      if (c_out != nullptr) c_out[row * H + hu] = from_f<TState>(c_new);
-      if (craw_out != nullptr) craw_out[row * H + hu] = c_raw;
-      if (gates_out != nullptr) {
-        TIn* gp = gates_out + row * G + hu;
-        gp[0] = from_f<TIn>(gg);
-        gp[H] = from_f<TIn>(ig);
-        gp[2 * H] = from_f<TIn>(fg);
-        gp[3 * H] = from_f<TIn>(og);
-      }
-      if (t + 1 < T) {
-        // m_t, rounded to the type of x, into every CTA's next operand
-        int idx;
-        if constexpr (BF16) {
-          idx = 2 * swz(r, hu >> 1, Kp / 2) + (hu & 1);
-        } else {
-          idx = r * Kp + hu;
-        }
-        idx += (cur ^ 1) * rows * Kp;
-        const TIn v = from_f<TIn>(m_new);
-        for (int dq = 0; dq < C; ++dq) cluster.map_shared_rank(op, dq)[idx] = v;
+    // the gates and the mask freeze for every (row, unit): every element's
+    // inputs first, so that the elements' arithmetic runs side by side
+    float in[EPT][6];
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ne) {
+        const int r = e / nu, u = e % nu;
+        const float* p4 = pre + r * cols + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) in[i][g] = p4[g * U];
+        in[i][4] = cs[r * U + u];
+        in[i][5] = ms[r * U + u];
       }
     }
-    cluster.sync();
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ne) {
+        const int r = e / nu, u = e % nu, hu = u0 + u;
+        float* p4 = pre + r * cols + u;
+        const float c_prev = in[i][4];
+        const float m_prev = in[i][5];
+        const float gg = tanhf(xr[i][0] + in[i][0]);
+        const float ig = sigm(xr[i][1] + in[i][1] + c_prev * ph[hu]);
+        const float fg = sigm(xr[i][2] + in[i][2] + c_prev * ph[H + hu]);
+        const float c_raw = fg * c_prev + ig * gg;
+        const float og = sigm(xr[i][3] + in[i][3] + c_raw * ph[2 * H + hu]);
+        const float m_raw = og * tanhf(c_raw);
+        const float mt = mr[i];
+        const float c_new = c_raw * mt + c_prev * (1.0f - mt);
+        const float m_new = m_raw * mt + m_prev * (1.0f - mt);
+        cs[r * U + u] = c_new;
+        ms[r * U + u] = m_new;
+        // the gates (bf16: packed in pairs, then c_raw) wait in pre
+        if constexpr (BF16) {
+          uint32_t* w4 = reinterpret_cast<uint32_t*>(p4);
+          w4[0] = pack2(from_f<TIn>(gg), from_f<TIn>(ig));
+          w4[U] = pack2(from_f<TIn>(fg), from_f<TIn>(og));
+          p4[2 * U] = c_raw;
+        } else {
+          p4[0] = gg;
+          p4[U] = ig;
+          p4[2 * U] = fg;
+          p4[3 * U] = og;
+        }
+        if (t + 1 < T) {
+          // m_t, rounded to the type of x, into every CTA's next operand
+          const int idx = BF16 ? 2 * swz(r, hu >> 1, Kp / 2) + (hu & 1) : r * Kp + hu;
+          const TIn v = from_f<TIn>(m_new);
+          for (int dq = 0; dq < C; ++dq) cluster.map_shared_rank(nxt, dq)[idx] = v;
+        }
+      }
+    }
+    if (t + 1 < T) cluster_arrive();
+    // step t's outputs, while the peers finish their exchange
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      const int e = tid + i * THREADS;
+      if (e < ne) {
+        const int r = e / nu, u = e % nu, hu = u0 + u;
+        const size_t row = (size_t)t * B + b0 + r;
+        const float* p4 = pre + r * cols + u;
+        m_out[row * H + hu] = from_f<TState>(ms[r * U + u]);
+        if (c_out != nullptr) c_out[row * H + hu] = from_f<TState>(cs[r * U + u]);
+        TIn* gp = gates_out != nullptr ? gates_out + row * G + hu : nullptr;
+        if constexpr (BF16) {
+          const uint32_t* w4 = reinterpret_cast<const uint32_t*>(p4);
+          if (craw_out != nullptr) craw_out[row * H + hu] = p4[2 * U];
+          if (gp != nullptr) {
+            const uint32_t gi = w4[0], fo = w4[U];
+            gp[0] = __ushort_as_bfloat16((unsigned short)(gi & 0xffffu));
+            gp[H] = __ushort_as_bfloat16((unsigned short)(gi >> 16));
+            gp[2 * H] = __ushort_as_bfloat16((unsigned short)(fo & 0xffffu));
+            gp[3 * H] = __ushort_as_bfloat16((unsigned short)(fo >> 16));
+          }
+        } else if (gp != nullptr) {
+          gp[0] = p4[0];
+          gp[H] = p4[U];
+          gp[2 * H] = p4[2 * U];
+          gp[3 * H] = p4[3 * U];
+        }
+      }
+    }
   }
 }
 
@@ -276,18 +470,31 @@ long long rec_smem_bytes(int H, int rows, int units, int kres, bool bf16) {
          (long long)kres * cols * s;
 }
 
+// The recurrence's instance for this shape: each thread carries 3 elements
+// of the gate phase and each warp 2 column tiles of the product where the
+// shape allows it (every kernel 1 plan of the recipes), else 6 and 3
+// (kernel 4's wide plans, where 2 tiles a warp would take two rounds).
+template <typename TIn, typename TState>
+auto rec_kernel(int rows, int units) {
+  return rows * units <= 3 * THREADS && units <= 4 * WARPS
+             ? lstm_rec_kernel<TIn, TState, 3, 2>
+             : lstm_rec_kernel<TIn, TState, EPT_MAX, 3>;
+}
+
 template <typename TIn, typename TState>
 cudaError_t rec_config(int B, int H, int cluster, int rows, int units, int kres,
                        cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const bool bf16 = std::is_same<TIn, __nv_bfloat16>::value;
-  // the shapes the kernel takes: whole mma tiles, a multiple of 64 resident
-  // rows of W_m on the bf16 path, every unit owned
+  // the shapes the kernel takes: whole mma tiles (at most two row tiles), a
+  // multiple of 64 resident rows of W_m on the bf16 path, every unit owned,
+  // each thread at most EPT_MAX elements
   if (cluster < 1 || cluster > 16 || rows < 4 || rows % (bf16 ? 16 : 4) != 0 ||
-      (bf16 && (units % 2 != 0 || kres % 64 != 0)) || kres < 0 || kres > kpad(H, bf16) ||
-      (long long)units * cluster < H)
+      (bf16 && (rows > 32 || units % 2 != 0 || kres % 64 != 0)) || kres < 0 ||
+      kres > kpad(H, bf16) ||
+      (long long)units * cluster < H || rows * units > EPT_MAX * THREADS)
     return cudaErrorInvalidValue;
   const size_t smem = (size_t)rec_smem_bytes(H, rows, units, kres, bf16);
-  auto kern = lstm_rec_kernel<TIn, TState>;
+  auto kern = rec_kernel<TIn, TState>(rows, units);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -318,7 +525,7 @@ cudaError_t max_clusters(int B, int H, int cluster, int rows, int units, int kre
   cudaLaunchAttribute attr;
   cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(active, lstm_rec_kernel<TIn, TState>, &cfg);
+  return cudaOccupancyMaxActiveClusters(active, rec_kernel<TIn, TState>(rows, units), &cfg);
 }
 
 // The recurrence's launch configuration, refused with
@@ -329,7 +536,7 @@ cudaError_t rec_ready(int B, int H, int cluster, int rows, int units, int kres, 
   cudaError_t err = rec_config<TIn, TState>(B, H, cluster, rows, units, kres, st, cfg, attr);
   if (err != cudaSuccess) return err;
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, lstm_rec_kernel<TIn, TState>, cfg);
+  err = cudaOccupancyMaxActiveClusters(&active, rec_kernel<TIn, TState>(rows, units), cfg);
   if (err != cudaSuccess) return err;
   return active < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
@@ -365,7 +572,8 @@ cudaError_t run(const void* x, const void* mask, const void* wx, const void* bia
   }
   if (err != cudaSuccess) return err;
   // (2) the recurrence
-  err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<TIn, TState>, static_cast<const float*>(xw),
+  err = cudaLaunchKernelEx(&cfg, rec_kernel<TIn, TState>(rows, units),
+                           static_cast<const float*>(xw),
                            static_cast<const float*>(mask), static_cast<const TIn*>(w),
                            static_cast<const float*>(ph), static_cast<TState*>(m_out),
                            static_cast<TState*>(c_out), static_cast<float*>(nullptr),
@@ -439,7 +647,8 @@ extern "C" int lstm_scan_fwd_rec(const void* xw, const void* mask, const void* w
   cudaLaunchAttribute attr;
   cudaError_t err = rec_ready<BF, float>(B, H, cluster, rows, units, kres, st, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, lstm_rec_kernel<BF, float>, static_cast<const float*>(xw),
+  err = cudaLaunchKernelEx(&cfg, rec_kernel<BF, float>(rows, units),
+                           static_cast<const float*>(xw),
                            static_cast<const float*>(mask), static_cast<const BF*>(wmT),
                            static_cast<const float*>(ph), static_cast<float*>(m_out),
                            static_cast<float*>(c_out), static_cast<float*>(craw_out),

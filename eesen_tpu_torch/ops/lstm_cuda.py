@@ -64,6 +64,8 @@ launches = 0
 bwd_launches = 0
 
 MAX_THREADS = 1024
+FWD_THREADS = 512             # kernel 1: threads a CTA, and (row, unit)
+FWD_EPT = 6                   # elements each carries through a step, at most
 MAX_H = 1024                  # widest cell the fused route takes
 SMEM_LIMIT = build.SMEM_LIMIT  # bytes of shared memory a block may use
 CLUSTERS = (8, 16)            # kernels 1 and 3: CTAs per cluster, in order
@@ -152,9 +154,10 @@ def fwd_units(h: int, cluster: int) -> int:
 def fwd_smem_bytes(h: int, rows: int, units: int, kres: int,
                    bf16: bool) -> int:
     """Shared memory of kernel 1's recurrence (csrc/lstm_fwd.cu
-    lstm_fwd_smem_bytes): f32 pre-activations [rows, 4U] and carries
-    2 x [rows, U], the double-buffered operand 2 x [rows, Kp] and `kres`
-    resident input rows of the CTA's W_m slice, both in the type of x."""
+    lstm_fwd_smem_bytes): f32 pre-activations [rows, 4U] (which also hold
+    the step's gates until they are stored) and carries 2 x [rows, U], the
+    double-buffered operand 2 x [rows, Kp] and `kres` resident input rows
+    of the CTA's W_m slice, both in the type of x."""
     s = 2 if bf16 else 4
     cols = 4 * units
     return (rows * cols * 4 + 2 * rows * units * 4

@@ -396,6 +396,99 @@ def test_lstm_kernel_shapes(dev, h, b, dtype):
                                            atol=atol, msg=f"{name} sb={sb}")
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def kernel_1_step(args, m, c):
+    """Kernel 1's plain step (lstm_direction_ref's arithmetic) at every
+    step at once, from the given m and c carries one step back (zero at
+    t=0): (m, c, gates) in float32."""
+    f32, cdt = torch.float32, args["x"].dtype
+    h = args["w_m"].shape[0]
+    ph = args["ph"]
+    m_prev, c_prev = lstm_v1_cuda._shift(m.float()), lstm_v1_cuda._shift(
+        c.float())
+    xw = torch.matmul(args["x"].float(), args["w_x"].float()) + args["bias"]
+    gifo = xw + torch.matmul(m_prev.to(cdt).to(f32), args["w_m"].float())
+    g = torch.tanh(gifo[..., :h])
+    i = torch.sigmoid(gifo[..., h:2 * h] + c_prev * ph[0])
+    f = torch.sigmoid(gifo[..., 2 * h:3 * h] + c_prev * ph[1])
+    c_raw = f * c_prev + i * g
+    o = torch.sigmoid(gifo[..., 3 * h:] + c_raw * ph[2])
+    mt = args["mask"][:, :, None]
+    return (o * torch.tanh(c_raw) * mt + m_prev * (1.0 - mt),
+            c_raw * mt + c_prev * (1.0 - mt), torch.cat([g, i, f, o], -1))
+
+
+@pytest.mark.parametrize("case", [
+    # (name, compute dtype, B, T, D, H, residuals)
+    ("wsj_train", torch.bfloat16, 128, 768, 640, 320, False),
+    ("wsj_train", torch.bfloat16, 128, 768, 640, 320, True),
+    ("libri_train", torch.bfloat16, 128, 768, 1280, 640, False),
+    ("libri_train", torch.bfloat16, 128, 768, 1280, 640, True),
+    ("ragged", torch.bfloat16, 104, 96, 640, 320, True),
+    ("one_step", torch.bfloat16, 20, 1, 48, 320, True),
+    ("two_steps", torch.bfloat16, 20, 2, 48, 640, True),
+    ("rows_16", torch.bfloat16, 16, 96, 120, 320, True),
+    ("rows_16", torch.bfloat16, 8, 96, 360, 640, False),
+    ("kernel_4", torch.bfloat16, 128, 96, 0, 1152, True),
+    ("f32", torch.float32, 20, 96, 48, 320, True),
+], ids=lambda c: "-".join(map(str, (c[0], c[2], c[3], c[5],
+                                     "res" if c[6] else "m"))))
+def test_lstm_recurrence_step_cases(dev, case):
+    """Kernel 1's recurrence step (xw and the mask loaded under the
+    product, the split cluster barrier, 2 or 3 column tiles a warp by
+    shape) against the plain version at the training cells' shapes, a
+    ragged batch, the first and the last step of the double buffer, the
+    16-row plan, kernel 4 at H=1152 (no W_m row resident) and the f32
+    path.
+
+    The step keeps the order of the product and of the gate arithmetic,
+    so m, c and the gates are the bits of the one-barrier step it
+    replaced (eesen_tpu_torch/tools/lstm_v1_timing.py hashes them at the
+    training shapes for two checkouts).  Against the plain version, which
+    sums in another order: each step from the kernel's own carries at the
+    JAX bf16 tolerance rtol 2e-2 / atol 2e-3 (f32: 1e-5), and the
+    free-running m within 1e-2 relative L2.  The state type and the
+    residuals change only the stores: m and c under state_bf16 are the
+    f32-state run's values rounded, and the gates its bits."""
+    name, dtype, b, t, d, h, res = case
+    bf16 = dtype == torch.bfloat16
+    plan = lstm_cuda.fwd_plan(b, h, bf16)
+    assert plan.rows == (16 if b <= 16 else 32) or not bf16
+    if name == "kernel_4":
+        assert plan.kres == 0
+        args, _ = scan_args(dev, h, t=t, b=b, seed=7)
+        got = lstm_v1_cuda.lstm_scan_fwd(**args)
+        step = scan_step(args, got[0], got[1])
+        for what, g, st in zip(("m", "c", "c_raw", "gates"), got, step):
+            torch.testing.assert_close(g.float(), st.float(), rtol=2e-2,
+                                       atol=2e-3, msg=lambda e: f"{what}: {e}")
+        assert rel_l2(got[0], lstm_v1_cuda.lstm_scan_fwd_ref(**args)[0]) \
+            <= 1e-2
+        return
+    args = shape_args(dev, dtype, b, h, t=t, d=d, seed=b + h)
+    before = lstm_cuda.launches
+    m, c, gates = lstm_cuda.lstm_direction(**args, with_residuals=True)
+    torch.cuda.synchronize()
+    assert lstm_cuda.launches - before == 1
+    tol = (2e-2, 2e-3) if bf16 else (1e-5, 1e-5)
+    for what, g, st in zip(("m", "c", "gates"), (m, c, gates),
+                           kernel_1_step(args, m, c)):
+        torch.testing.assert_close(g.float(), st, rtol=tol[0], atol=tol[1],
+                                   msg=lambda e: f"{what}: {e}")
+    assert rel_l2(m, lstm_cuda.lstm_direction_ref(**args)) <= 1e-2
+    got = lstm_cuda.lstm_direction(**args, state_bf16=True,
+                                   with_residuals=res)
+    torch.cuda.synchronize()
+    want = (m, c, gates) if res else (m,)
+    for g, w in zip(got if res else (got,), want):
+        w = w.to(torch.bfloat16) if w.dtype == torch.float32 and \
+            g.dtype == torch.bfloat16 else w
+        assert torch.equal(_bits(g), _bits(w))
+
+
 def bwd_close(name, got, want, bf16):
     """|got - want| <= atol * max(1, max|want|) + rtol * |want|: a weight
     gradient sums T*B products, so the error of sums in another order

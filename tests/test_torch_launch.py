@@ -32,6 +32,11 @@ LIMIT = 232448
     (128, 1024, False, (16, 16, 64, 75)),
     # a narrow toy: the operand rows pad to 64
     (3, 32, True, (8, 16, 4, 64)),
+    # kernel 4's widths: U 72, and 164 at the plan's widest (rows halve)
+    (128, 1152, True, (16, 32, 72, 0)),
+    (128, 2624, True, (16, 16, 164, 0)),
+    # an odd width: U 42, the operand rows pad to 384, all resident
+    (128, 321, True, (8, 32, 42, 384)),
 ])
 def test_fwd_plan(b, h, bf16, want):
     plan = lstm_cuda.fwd_plan(b, h, bf16)
@@ -46,6 +51,8 @@ def test_fwd_plan(b, h, bf16, want):
     (640, 32, 40, 320, True, 20480 + 10240 + 81920 + 102400),
     (1024, 16, 64, 75, False, 16384 + 8192 + 131072 + 76800),
     (33, 16, 4, 64, True, 1024 + 512 + 4096 + 2048),    # H pads to 64
+    # kernel 4's widest plan
+    (2624, 16, 164, 0, True, 41984 + 20992 + 167936),
 ])
 def test_fwd_smem_bytes(h, rows, units, kres, bf16, want):
     assert lstm_cuda.fwd_smem_bytes(h, rows, units, kres, bf16) == want
@@ -76,6 +83,8 @@ def test_fused_launch_keeps_every_shape_it_took(b, h):
             if got is not None:
                 p = got.fwd
                 assert p.units * p.cluster >= h and p.units % 2 == 0
+                assert p.rows * p.units <= \
+                    lstm_cuda.FWD_THREADS * lstm_cuda.FWD_EPT
                 assert p.rows % (16 if bf16 else 4) == 0
                 assert p.kres <= lstm_cuda.fwd_kpad(h, bf16)
                 assert not bf16 or p.kres % 64 == 0
@@ -450,6 +459,8 @@ def test_v1_launch_keeps_every_h_it_took(b):
             elif which == "fwd":
                 p = got.plan
                 assert p.units * p.cluster >= h and p.units % 2 == 0
+                assert p.rows * p.units <= \
+                    lstm_cuda.FWD_THREADS * lstm_cuda.FWD_EPT
                 assert p.rows % 16 == 0 and p.kres % 64 == 0
                 assert p.kres <= lstm_cuda.fwd_kpad(h, True)
                 assert lstm_cuda.fwd_smem_bytes(h, p.rows, p.units, p.kres,
